@@ -1,0 +1,166 @@
+"""Render driver: render one split in rgb or lang mode, print the FPS line,
+save raw npy maps and PNGs (port of langsplat4d/render/driver.py; reference
+render.py:67-161).
+
+Each frame is one `render` call; the Gaussians are fixed over the
+trajectory, so the HexPlane's spatial-plane products are computed once.
+Frames stay on the device inside the timed loop and are copied out after it,
+as the reference does. Ground-truth language maps are not loaded yet: that
+waits for the port of the scene readers.
+"""
+from __future__ import annotations
+
+import os
+import struct
+import time as time_mod
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+from langsplat4d_torch.render.pipeline import render
+from langsplat4d_torch.render.raster import RasterSettings
+
+
+def to8b(x: np.ndarray) -> np.ndarray:
+    return (255 * np.clip(x, 0, 1)).astype(np.uint8)
+
+
+def pca_compress(feature_map: np.ndarray) -> np.ndarray:
+    """[C > 3, H, W] -> [3, H, W] visualization: projection on the top three
+    principal components, scaled to [0, 1] (reference render.py:52-65)."""
+    c, h, w = feature_map.shape
+    flat = feature_map.transpose(1, 2, 0).reshape(-1, c).astype(np.float64)
+    flat = flat - flat.mean(axis=0)
+    u, s, _ = np.linalg.svd(flat, full_matrices=False)
+    # sign convention: the largest |entry| of each component is positive
+    signs = np.sign(u[np.argmax(np.abs(u), axis=0), range(u.shape[1])])
+    out = (u[:, :3] * s[:3] * signs[:3]).reshape(h, w, 3)
+    out = (out - out.min()) / (out.max() - out.min())
+    return out.transpose(2, 0, 1).astype(np.float32)
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """Encode an [H, W] or [H, W, 3] uint8 image as PNG."""
+    h, w = img.shape[:2]
+    color_type = 2 if img.ndim == 3 else 0
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                         axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                         0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _write_images(images: List[np.ndarray], path: str) -> None:
+    def write_one(i, img):
+        arr = to8b(img).transpose(1, 2, 0)
+        if arr.shape[2] == 1:
+            arr = arr[:, :, 0]
+        with open(os.path.join(path, f"{i:05d}.png"), "wb") as f:
+            f.write(png_bytes(np.ascontiguousarray(arr)))
+
+    with ThreadPoolExecutor() as ex:
+        list(ex.map(lambda t: write_one(*t), enumerate(images)))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
+               mode: str = "rgb", load_stage: str = "fine-lang",
+               noimage: bool = False, nonpy: bool = False,
+               novideo: bool = False) -> float:
+    """Renders one split of `views` (HostCameras) from `model`
+    (checkpoint.TrainedModel) on the model's device; returns the FPS,
+    (len(views) - 1) / seconds of the frame loop (reference render.py:95,
+    133-134). `scene` is accepted for the reference's signature; its
+    dataset type only matters to ground-truth loading."""
+    del scene
+    base = os.path.join(cfg.model.model_path, f"{name}_{mode}",
+                        f"ours_{iteration}")
+    render_path = os.path.join(base, "renders")
+    gts_path = os.path.join(base, "gt")
+    render_npy_path = os.path.join(base, "renders_npy")
+    gts_npy_path = os.path.join(base, "gt_npy")
+    for p in (render_path, gts_path, render_npy_path, gts_npy_path):
+        os.makedirs(p, exist_ok=True)
+
+    gs, net, aabb = model.gaussians, model.deform, model.aabb
+    dev = gs.device
+    first = views[0]
+    settings = RasterSettings(
+        image_height=first.height, image_width=first.width,
+        sh_degree=model.active_sh_degree,
+        include_feature="base" not in load_stage,
+        tile_size=cfg.runtime.render_tile_size)
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=dev)
+    grid_spatial = (make_grid_spatial_cache(net, dcfg, aabb, gs.xyz)
+                    if load_stage.startswith("fine") else None)
+    key = "render" if mode == "rgb" else "language_feature_image"
+    cams = [v.camera_params(dev) for v in views]
+
+    def render_one(i):
+        return render(settings, dcfg, load_stage, cams[i], views[i].time, gs,
+                      net, aabb, bg, nonormalized=cfg.runtime.nonormalized,
+                      grid_spatial=grid_spatial)[key]
+
+    render_one(0)                      # warm-up: kernel build, allocator
+    frames = []
+    _sync(dev)
+    time1 = time_mod.perf_counter()
+    for i in range(len(views)):
+        frames.append(render_one(i))
+    _sync(dev)
+    time2 = time_mod.perf_counter()
+    fps = (len(views) - 1) / max(time2 - time1, 1e-9)
+    print("FPS:", fps)
+
+    render_list = [f.cpu().numpy() for f in frames]
+    del frames
+    gt_list: List[Optional[np.ndarray]] = []
+    tosave: List[np.ndarray] = []
+    for idx, view in enumerate(views):
+        rendering = render_list[idx]
+        gt = None
+        if mode == "rgb":
+            gt = view.image[:3] if view.image is not None else None
+        else:
+            rendering = (rendering + 1.0) / 2
+            if rendering.shape[0] > 3:
+                rendering = pca_compress(rendering)
+        gt_list.append(gt)
+        tosave.append(rendering)
+
+    if not noimage:
+        gts = [g for g in gt_list if g is not None]
+        if gts:
+            _write_images(gts, gts_path)
+        _write_images(tosave, render_path)
+    if not nonpy:
+        for idx, rendering in enumerate(render_list):
+            np.save(os.path.join(render_npy_path, f"{idx:05d}.npy"),
+                    rendering.transpose(1, 2, 0))
+            if gt_list[idx] is not None:
+                np.save(os.path.join(gts_npy_path, f"{idx:05d}.npy"),
+                        gt_list[idx].transpose(1, 2, 0))
+    if not novideo:
+        try:
+            import imageio
+            imageio.mimwrite(os.path.join(base, f"video_{mode}.mp4"),
+                             [to8b(r).transpose(1, 2, 0) for r in tosave],
+                             fps=30)
+        except (ValueError, ImportError) as e:
+            print(f"[render] skipping video_{mode}.mp4 (no mp4 backend: {e})")
+    return fps
