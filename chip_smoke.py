@@ -5,21 +5,38 @@
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 Phases, each failing the run on error:
-  1. build the stream compositor kernel from csrc/ with nvcc;
-  2. compare it with its plain PyTorch version on synthetic segments (16-
-     and 32-px tiles, hard cutoffs on and off, empty and long segments,
-     ragged image edges), max abs error <= 3e-5;
-  3. render the bench workload (200k realistic Gaussians at 1352x1014, the
-     Neu3D-preset deformation at full width with seeded random weights, a
-     60-frame orbit, lang mode, fine-lang) through
-     langsplat4d_torch.render.driver.render_set, and count the kernel's
-     launches in that run;
-  4. per-stage device times over a few frames;
+  1. build the three compositor kernels from csrc/ with nvcc, one nvcc per
+     source, all started together;
+  2. compare the stream kernel with its plain PyTorch version on synthetic
+     segments (16- and 32-px tiles, hard cutoffs on and off, empty and long
+     segments, ragged image edges), max abs error <= 3e-5;
+  3. the render path: the bench workload (200k realistic Gaussians at
+     1352x1014, the Neu3D-preset deformation at full width with seeded
+     random weights, a 60-frame orbit, lang mode, fine-lang) through the
+     port's render_set, counting the stream kernel's launches in that run;
+  4. per-stage device times of a frame;
   5. frame 0 composited by the kernel vs the plain version, and vs what
-     render_set wrote; kernel and plain times at 32- and 16-px tiles.
-Prints the card's name and power limit, one JSON line describing the
-kernels, and as the last line {"ok": true, "device": {...}}. Imports nothing
-of JAX or of the JAX package.
+     render_set wrote; kernel and plain times at 32- and 16-px tiles;
+  6. the ptxas figures (registers, shared memory, spills) of the kernels;
+  7. both against their plain versions on synthetic lists (hard cutoffs on
+     and off, counts of 0, 1, full and ragged, row widths 16 and 24, 35
+     tiles): forward <= 3e-5, backward within rtol 2e-3 / atol 2e-4;
+  8. the training path: the training-step workload (100k realistic
+     Gaussians at 960x536, the same deformation, 16-px tiles of capacity
+     512, fine-lang, batch 1) through langsplat4d_torch.train.step:
+     1 warm-up + 20 train_step calls, counting both kernels' launches;
+  9. step 1 recomputed stage by stage with the kernels and with their plain
+     versions on the card: the loss, every column of the gradient rows and
+     of the packed rows' gradient, and every trained leaf's gradient, each
+     held to rtol 2e-3 / atol 2e-4 relative to its own largest entry;
+ 10. per-stage device times of a step; kernel and plain times of both
+     kernels on step 1's rows;
+ 11. torch.profiler over five steps: device kernels per step and the
+     device's busy share.
+Prints one JSON line describing the kernels (each with its time beside the
+least time the card could take for the same work), the card's name and
+power limit, and as the last line {"ok": true, "device": {...}}. Imports
+nothing of JAX or of the JAX package.
 """
 import json
 import os
@@ -34,8 +51,52 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 3e-5          # the repo's kernel bound (tests/test_pallas_composite.py)
-KERNEL_SOURCE = "langsplat4d_torch/csrc/composite_stream.cu"
-REPLACES = "langsplat4d/ops/tile_composite.py:452"   # _stream_kernel
+# name -> (source, the TPU kernel body it replaces)
+KERNELS = {
+    "composite_stream": ("langsplat4d_torch/csrc/composite_stream.cu",
+                         "langsplat4d/ops/tile_composite.py:452"),
+    "composite_tiles": ("langsplat4d_torch/csrc/composite_tiles.cu",
+                        "langsplat4d/ops/tile_composite.py:77"),
+    "composite_tiles_backward": (
+        "langsplat4d_torch/csrc/composite_tiles_backward.cu",
+        "langsplat4d/ops/tile_composite.py:267"),
+}
+# Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and float32
+# operations/s outside the tensor cores (the compositors are float32 vector
+# code with one expf per pair).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+
+ALPHA_OPS = 20   # one evaluated (Gaussian, pixel) pair: the power chain
+                 # (5 fma = 10), + ln_op, expf (counted as 8), min
+
+
+def forward_ops(evaluated, live, c):
+    """float32 operations the forward needs for `evaluated` (Gaussian,
+    pixel) pairs of which `live` are blended: every evaluated pair its alpha
+    (ALPHA_OPS); a live one besides 1 - alpha, T * (1 - alpha), alpha * T,
+    the alpha sum (4) and the c feature fmas (2c). A pair skipped by
+    power > 0 or alpha < 1/255 needs none of the latter."""
+    return evaluated * ALPHA_OPS + live * (4 + 2 * c)
+
+
+def backward_ops(evaluated, live, c):
+    """The backward's: every evaluated pair its alpha; a live one besides
+    1 - alpha and T * (1 - alpha) (2), phi (2c + 1), alpha * T, prefix, S,
+    d_alpha, da (9), five basis products, the 6 + c sums over pixels (one
+    add per pair each) and the c products w * g_c."""
+    return evaluated * ALPHA_OPS + live * (2 + (2 * c + 1) + 9 + 5
+                                           + (6 + c) + c)
+
+
+def bound(n_bytes, n_ops):
+    """The least time in ms the card could take: the larger of the bytes
+    over the memory rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
 # Config().runtime.render_tile_size of the JAX package's config, restated
 # because this script imports nothing of that package
 RENDER_TILE_SIZE = 32
@@ -114,6 +175,103 @@ def compare_case(ts, hard, h, w, pw, device, seed=0):
     return float((out - ref).abs().max())
 
 
+def synthetic_lists(tiles_x, tiles_y, k_cap, counts, generator, pw=16):
+    """Padded per-tile lists on the CPU from `synthetic_stream`: tile t
+    holds counts[t] rows front-compacted in rows[t, :counts[t]]; the padded
+    slots carry the invalid sentinel ln_op = -1e30 and garbage elsewhere.
+    Returns (rows [T, K, pw] f32, counts [T] int32)."""
+    counts = torch.as_tensor(counts, dtype=torch.int64)
+    stream, starts = synthetic_stream(tiles_x, tiles_y, 16, counts, generator,
+                                      pw=pw)
+    rows = torch.randn(len(counts), k_cap, pw, generator=generator)
+    rows[:, :, 5] = -1e30
+    slot = torch.arange(int(counts.sum())) - torch.repeat_interleave(
+        starts[:-1].long(), counts)
+    rows[torch.repeat_interleave(torch.arange(len(counts)), counts),
+         slot] = stream
+    return rows, counts.to(torch.int32)
+
+
+def list_cases():
+    """(hard_cutoffs, pw) cases of phase 7."""
+    return [(True, 16), (False, 16), (True, 24)]
+
+
+def case_counts(tiles, k_cap, generator):
+    """List lengths: empty, one entry, full and ragged."""
+    counts = torch.randint(2, k_cap, (tiles,), generator=generator)
+    counts[0], counts[1], counts[2], counts[tiles - 1] = 0, 1, k_cap, k_cap
+    counts[torch.randperm(tiles - 4, generator=generator)[:4] + 3] = 0
+    return counts
+
+
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)   # the repo's gradient bound
+                                        # (tests/test_pallas_composite.py)
+
+
+def grad_excess(got, want):
+    """max of |got - want| - (atol + rtol |want|): <= 0 within GRAD_TOL."""
+    return float(((got - want).abs() - GRAD_TOL["atol"]
+                  - GRAD_TOL["rtol"] * want.abs()).max())
+
+
+def scaled_errors(got, want):
+    """(max abs error, excess over GRAD_TOL), both after dividing by the
+    largest |want|: the gradient bound taken relative to this tensor's own
+    scale. Where `want` is all zero, `got` must be too."""
+    scale = float(want.abs().max())
+    if scale == 0.0:
+        worst = float(got.abs().max())
+        return worst, (0.0 if worst == 0.0 else float("inf"))
+    return (float((got - want).abs().max()) / scale,
+            grad_excess(got / scale, want / scale))
+
+
+def hold_columns(tag, got, want):
+    """Hold every column (last axis) of a gradient to GRAD_TOL relative to
+    that column's own largest entry, print the columns' errors, and raise on
+    the first that is beyond the bound."""
+    res = [scaled_errors(got[..., j], want[..., j])
+           for j in range(want.shape[-1])]
+    print(f"[9] {tag} per column, max abs err / column max "
+          f"(column max): " + ", ".join(
+              f"{j}: {e:.3g} ({float(want[..., j].abs().max()):.3g})"
+              for j, (e, _) in enumerate(res)), flush=True)
+    for j, (e, x) in enumerate(res):
+        if x > 0:
+            raise AssertionError(f"{tag} column {j} beyond the gradient "
+                                 f"bound: scaled error {e}, excess {x}")
+
+
+def compare_list_case(hard, pw, device, seed=0, tiles=(7, 5), k_cap=80):
+    """The tile-list forward and backward kernels and their plain versions
+    on one synthetic case -> (forward max abs error, backward max abs error,
+    backward excess over the gradient bound)."""
+    from langsplat4d_torch.ops import composite as C
+    g = torch.Generator().manual_seed(seed)
+    tx, ty = tiles
+    rows, counts = synthetic_lists(tx, ty, k_cap,
+                                   case_counts(tx * ty, k_cap, g), g, pw=pw)
+    g_out = torch.randn(tx * ty, pw - 7, 256, generator=g)
+    rows, counts, g_out = (t.to(device) for t in (rows, counts, g_out))
+    bg = torch.tensor([0.2, 0.5, 0.8], device=device)
+    kw = dict(tiles_x=tx, tile_size=16, hard_cutoffs=hard)
+    out = C.composite_tiles(rows, counts, bg, **kw)
+    ref = C.composite_tiles_plain(rows, counts, bg, **kw)
+    total = (ref * g_out).sum(1)
+    d_rows = C.composite_tiles_backward(rows, counts, g_out, total, **kw)
+    d_ref = C.composite_tiles_backward_plain(rows, counts, g_out, total, **kw)
+    torch.cuda.synchronize()
+    for t in (out, d_rows):
+        if not torch.isfinite(t).all():
+            raise AssertionError("non-finite kernel output")
+    if out.shape != (tx * ty, pw - 7, 256) or d_rows.shape != rows.shape:
+        raise AssertionError(f"bad shapes {tuple(out.shape)} "
+                             f"{tuple(d_rows.shape)}")
+    return (float((out - ref).abs().max()),
+            float((d_rows - d_ref).abs().max()), grad_excess(d_rows, d_ref))
+
+
 def bench_workload(device, frames=60, n=200_000, hw=(1014, 1352)):
     """The bench scene, deformation, AABB and orbit (bench.py:38-73)."""
     from langsplat4d_torch.data.cameras import HostCamera
@@ -138,6 +296,378 @@ def bench_workload(device, frames=60, n=200_000, hw=(1014, 1352)):
                                 fovy=0.8, width=W, height=H,
                                 time=i / max(frames - 1, 1)))
     return gs, dcfg, net, aabb, views
+
+
+# the optimisation parameters the training-step workload takes its learning
+# rates from (the JAX package's OptimizationConfig defaults, restated)
+OPTIM = types.SimpleNamespace(
+    position_lr_init=0.00016, position_lr_final=0.0000016,
+    position_lr_delay_mult=0.01, position_lr_max_steps=20_000,
+    deformation_lr_init=0.00016, deformation_lr_final=0.000016,
+    deformation_lr_delay_mult=0.01, grid_lr_init=0.0016,
+    grid_lr_final=0.00016, feature_lr=0.0025, opacity_lr=0.05,
+    scaling_lr=0.005, rotation_lr=0.001, language_feature_lr=0.0025)
+
+
+def train_workload(device, n=100_000, hw=(536, 960), tile_capacity=512,
+                   net_width=128):
+    """The training-step workload (bench.py:293-419): realistic Gaussians,
+    the Neu3D-preset deformation, one camera at T = (0, 0, 4), time 0.3,
+    16-px tiles, fine-lang, batch 1, random ground truth from a seed, a mask
+    of ones, black background. -> (state, step config, batch, bg)."""
+    from langsplat4d_torch.data.cameras import HostCamera
+    from langsplat4d_torch.field.deformation import (DeformConfig,
+                                                     DeformNetwork)
+    from langsplat4d_torch.render.raster import CameraParams, RasterSettings
+    from langsplat4d_torch.train.optim import LRConfig
+    from langsplat4d_torch.train.step import Batch, StepConfig
+    from langsplat4d_torch.train.trainstate import make_train_state
+    from langsplat4d_torch.utils.synth import realistic_gaussians
+    (H, W), lang_dim = hw, 3
+    rng = np.random.default_rng(1)
+    gs = realistic_gaussians(n, lang_dim=lang_dim, seed=1, device=device)
+    dcfg = DeformConfig(
+        lang_dim=lang_dim, no_dlang=False, kplanes_out_dim=16,
+        kplanes_resolution=(64, 64, 64, 150), multires=(1, 2),
+        net_width=net_width, defor_depth=0, no_do=False, no_dshs=False,
+        no_ds=False)
+    net = DeformNetwork(dcfg, torch.Generator().manual_seed(1)).to(device)
+    aabb = torch.tensor([[1.6] * 3, [-1.6] * 3], device=device)
+    state = make_train_state(gs, net, aabb, active_sh_degree=3)
+    cam = HostCamera(R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=1.0,
+                     fovy=0.8, width=W, height=H).camera_params(device)
+
+    def up(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+    batch = Batch(
+        cams=CameraParams(*[t[None] for t in cam]),
+        times=torch.tensor([0.3], device=device),
+        gt_images=up(rng.uniform(size=(1, 3, H, W))),
+        gt_lang=up(rng.normal(size=(1, lang_dim, H, W))),
+        lang_mask=torch.ones((1, 1, H, W), device=device))
+    settings = RasterSettings(image_height=H, image_width=W, sh_degree=3,
+                              include_feature=True, analytic_vjp=True,
+                              tile_capacity=tile_capacity)
+    cfg = StepConfig(settings=settings, dcfg=dcfg,
+                     lr_cfg=LRConfig.from_optim(OPTIM, 1.0),
+                     stage="fine-lang", no_dlang=False)
+    return state, cfg, batch, torch.zeros(3, device=device)
+
+
+class Marks:
+    """CUDA events between the stages of one pass; off the GPU it records
+    nothing."""
+
+    def __init__(self, device):
+        self.on = device.type == "cuda"
+        self.events, self.names = [], []
+
+    def mark(self, name=None):
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.events.append(e)
+            if name is not None:
+                self.names.append(name)
+
+    def ms(self):
+        """{stage: ms}; call after a synchronize."""
+        return {n: self.events[i].elapsed_time(self.events[i + 1])
+                for i, n in enumerate(self.names)}
+
+
+def staged_step(cfg, state, batch, bg, plain=False, update=False):
+    """One training step of the workload, stage by stage, with the
+    compositor's pieces called directly instead of through autograd (the
+    same calls `CompositeCV` makes), so that each stage can be timed and
+    the kernels' inputs and outputs kept. `plain` runs the kernels' plain
+    versions instead; `update` applies Adam. Returns a dict with the loss,
+    the rows, counts, g_out and total the kernels saw, the gradient of the
+    packed rows, the leaves' gradients and the stage times."""
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render.composite_vjp import (drop_padding,
+                                                        kernel_rows,
+                                                        pad_cotangent,
+                                                        scatter_rows)
+    from langsplat4d_torch.render.pipeline import prepare_attributes
+    from langsplat4d_torch.render.raster import (CameraParams, bin_tiles,
+                                                 pack_differentiable,
+                                                 preprocess, tiles_to_image)
+    from langsplat4d_torch.train import losses
+    from langsplat4d_torch.train.optim import (adam_update, group_lrs,
+                                               group_of_leaf, trainable_tree)
+    settings = cfg.settings
+    kw = dict(tiles_x=settings.tiles_x, tile_size=settings.tile_size,
+              hard_cutoffs=settings.hard_cutoffs)
+    leaves = state.leaves()
+    train = trainable_tree(leaves, cfg.stage, include_feature=True,
+                           joint_train=cfg.joint_train, no_dlang=cfg.no_dlang)
+    wrt = [n for n in leaves if train[n]]
+    for name, p in state.deform.named_parameters():
+        p.requires_grad_(train["deform." + name])
+    gs = state.gaussians()
+    gs.language_feature = gs.language_feature.detach().requires_grad_(True)
+    dummy = torch.zeros((state.capacity, 2), device=state.device,
+                        requires_grad=True)
+    cam = CameraParams(*[t[0] for t in batch.cams])
+    m = Marks(state.device)
+
+    m.mark("deform+preprocess")
+    a = prepare_attributes(cfg.dcfg, cfg.stage, batch.times[0], gs,
+                           state.deform, state.aabb)
+    prep = preprocess(settings, cam, a[0], a[3], a[1], a[2], a[4], None,
+                      active=gs.active_mask(), means2d_dummy=dummy)
+    m.mark("lists")
+    entries, valid = bin_tiles(settings, prep)
+    m.mark("pack")
+    packed = pack_differentiable(prep, a[5])
+    with torch.no_grad():
+        rows, counts = kernel_rows(packed, entries, valid)
+        m.mark("forward kernel")
+        fwd = C.composite_tiles_plain if plain else C.composite_tiles
+        accum = fwd(rows, counts, bg, **kw)
+    m.mark("loss")
+    out = drop_padding(accum, packed.shape[1] - 6).detach().clone(
+        ).requires_grad_(True)
+    lang_img = tiles_to_image(settings, out)[3:3 + cfg.dcfg.lang_dim][None]
+    loss = cfg.lam * losses.l1_loss(lang_img * batch.lang_mask,
+                                    batch.gt_lang * batch.lang_mask)
+    g_out, = torch.autograd.grad(loss, out)
+    with torch.no_grad():
+        g_full = pad_cotangent(g_out, accum.shape[1] - 1)
+        total = torch.sum(accum * g_full, dim=1)
+        m.mark("backward kernel")
+        bwd = (C.composite_tiles_backward_plain if plain
+               else C.composite_tiles_backward)
+        d_rows = bwd(rows, counts, g_full, total, **kw)
+        m.mark("scatter-add")
+        d_packed = scatter_rows(d_rows, entries, packed)
+    m.mark("rest of backward")
+    inputs = [dummy] + [gs.language_feature if n == "language_feature"
+                        else leaves[n] for n in wrt]
+    got = torch.autograd.grad(packed, inputs, grad_outputs=d_packed,
+                              allow_unused=True)
+    grads = dict(zip(wrt, got[1:]))
+    m.mark("adam")
+    if update:
+        group_lr = group_lrs(cfg.lr_cfg, 1)
+        adam_update(leaves, grads, state.opt,
+                    {n: group_lr[group_of_leaf(n)] for n in leaves}, train)
+    m.mark()
+    if m.on:
+        torch.cuda.synchronize()
+    return dict(loss=loss.detach(), rows=rows, counts=counts, g_out=g_full,
+                total=total, accum=accum, d_rows=d_rows, d_packed=d_packed,
+                grads=grads, vs_grad=got[0], valid=valid, entries=entries,
+                ms=m.ms() if m.on else {})
+
+
+def profile_steps(cfg, state, batch, bg, ms_step, steps=5):
+    """Phase 11: torch.profiler over a few training steps: device kernels
+    per step, their summed time against the unprofiled step time `ms_step`
+    (the device's busy share), and the kernels that take most of it. Fails
+    if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from langsplat4d_torch.train.step import train_step
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            train_step(cfg, state, batch, bg, 100 + i, 3)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    busy = sum(r[0] for r in rows)
+    if not busy > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    rows.sort(reverse=True)
+    print(f"[11] torch.profiler over {steps} steps: "
+          f"{sum(r[1] for r in rows):.0f} device kernels per step, kernel "
+          f"time {busy:.3f} ms per step against {ms_step:.3f} ms unprofiled: "
+          f"device busy {busy / ms_step:.1%}", flush=True)
+    for ms, n, key in rows[:8]:
+        print(f"[11]   {ms:.3f} ms/step x{n:.0f}  {key[:90]}", flush=True)
+
+
+def train_phases(dev, steps=20, **workload_kw):
+    """Phases 8 to 10 on `dev` (a CPU device rehearses them at a small size
+    with the plain versions and times nothing). Returns the kernels' JSON
+    entries for composite_tiles and composite_tiles_backward."""
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.train.step import train_step
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # 8. the main path
+    state, cfg, batch, bg = train_workload(dev, **workload_kw)
+    before = {n: p.detach().clone() for n, p in state.leaves().items()}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    C.composite_tiles.launches = C.composite_tiles_backward.launches = 0
+    state, metrics, vs_grad, vis, radii = train_step(cfg, state, batch, bg,
+                                                     1, 3)      # warm-up
+    first_loss = float(metrics["loss"])
+    sync()
+    if on_card:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+    t0 = time.perf_counter()
+    step_losses = []
+    for i in range(steps):
+        state, metrics, vs_grad, vis, radii = train_step(cfg, state, batch,
+                                                         bg, i + 2, 3)
+        step_losses.append(metrics["loss"])
+    if on_card:
+        e1.record()
+    sync()
+    host_ms = (time.perf_counter() - t0) / steps * 1e3
+    ms_step = e0.elapsed_time(e1) / steps if on_card else float("nan")
+    launches = (C.composite_tiles.launches,
+                C.composite_tiles_backward.launches)
+    step_losses = [first_loss] + [float(x) for x in step_losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else 0.0
+    print(f"[8] train_step x{steps} after 1 warm-up: {ms_step:.3f} ms/step "
+          f"(CUDA events), {1e3 / ms_step:.3f} it/s; host clock "
+          f"{host_ms:.3f} ms/step; peak memory {peak:.1f} MiB; loss "
+          f"{step_losses[0]:.6f} -> {step_losses[-1]:.6f}; visible "
+          f"{int(vis.sum())}; launches forward {launches[0]}, backward "
+          f"{launches[1]}", flush=True)
+    if not all(np.isfinite(step_losses)):
+        raise AssertionError(f"loss not finite: {step_losses}")
+    if not step_losses[-1] < step_losses[0]:
+        raise AssertionError(f"loss did not fall: {step_losses}")
+    if on_card and min(launches) < steps + 1:
+        raise AssertionError(f"kernels launched {launches} times in "
+                             f"{steps + 1} steps")
+    if not (torch.isfinite(vs_grad).all() and vs_grad.abs().max() > 0):
+        raise AssertionError("viewspace gradient zero or not finite")
+    moved = set()
+    for n, p in state.leaves().items():
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"{n} not finite after training")
+        if not torch.equal(p, before[n]):
+            moved.add(n)
+    want = {n for n in before
+            if n == "language_feature" or ".lang_deform." in n}
+    if moved != want:
+        raise AssertionError(f"leaves that changed: {sorted(moved)}; "
+                             f"expected {sorted(want)}")
+    del before
+
+    # 9. step 1 again from the same seed, stage by stage: kernels vs plain
+    state, cfg, batch, bg = train_workload(dev, **workload_kw)
+    ker = staged_step(cfg, state, batch, bg, plain=False)
+    ref = staged_step(cfg, state, batch, bg, plain=True)
+    n_valid = int(ker["counts"].sum())
+    full = float((ker["counts"] == cfg.settings.tile_capacity).float().mean())
+    print(f"[9] step 1: valid list entries {n_valid}, tiles with a full "
+          f"list {full:.4f}", flush=True)
+    for n, g in ker["grads"].items():
+        if g is None or not torch.isfinite(g).all():
+            raise AssertionError(f"gradient of {n} missing or not finite")
+    rel = abs(float(ker["loss"]) - first_loss) / first_loss
+    fwd_err = float((ker["accum"] - ref["accum"]).abs().max())
+    d_err = float((ker["d_packed"] - ref["d_packed"]).abs().max())
+    print(f"[9] staged loss vs train_step's: rel diff {rel:.3g}; kernels vs "
+          f"plain: loss {float(ker['loss']):.8f} vs {float(ref['loss']):.8f}, "
+          f"accum max abs err {fwd_err:.3g}, d_packed max abs err "
+          f"{d_err:.3g} of max {float(ref['d_packed'].abs().max()):.3g}",
+          flush=True)
+    if rel > 1e-6:
+        raise AssertionError("the staged step is not train_step's step")
+    if fwd_err > TOL or abs(float(ker["loss"] - ref["loss"])) > 1e-7:
+        raise AssertionError("forward kernel disagrees with plain")
+    # the loss is a mean over 1.5M pixel-channels, so the gradients are tiny
+    # and their columns differ by orders of magnitude (the feature columns,
+    # which alone reach the trained leaves in fine-lang, are the smallest):
+    # each column is held to the gradient bound relative to its own largest
+    # entry, and so is each trained leaf
+    hold_columns("d_rows", ker["d_rows"], ref["d_rows"])
+    hold_columns("d_packed", ker["d_packed"], ref["d_packed"])
+    for n in ["vs_grad"] + sorted(ref["grads"]):
+        got, want = ((ker[n], ref[n]) if n == "vs_grad"
+                     else (ker["grads"][n], ref["grads"][n]))
+        e, x = scaled_errors(got, want)
+        print(f"[9] {n}: max abs err / leaf max {e:.3g} (leaf max "
+              f"{float(want.abs().max()):.3g})", flush=True)
+        if float(want.abs().max()) == 0.0:
+            raise AssertionError(f"the gradient of {n} is zero")
+        if x > 0:
+            raise AssertionError(f"gradient of {n} beyond the gradient "
+                                 f"bound: scaled error {e}, excess {x}")
+    if not on_card:
+        return []
+
+    # 10. per-stage times, kernel and plain times
+    n_stage = 10
+    tot = {}
+    for i in range(n_stage + 1):
+        ms = staged_step(cfg, state, batch, bg, update=True)["ms"]
+        if i:                                        # pass 0 warms up
+            for k, v in ms.items():
+                tot[k] = tot.get(k, 0.0) + v / n_stage
+    print(f"[10] per-stage ms of a step (CUDA events, mean of {n_stage}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tot.items())
+          + f"; sum {sum(tot.values()):.3f}", flush=True)
+
+    kw = dict(tiles_x=cfg.settings.tiles_x, tile_size=16, hard_cutoffs=True)
+    rows, counts, g_out, total = (ker[k] for k in
+                                  ("rows", "counts", "g_out", "total"))
+    stats = {}
+    C.composite_tiles_plain(rows, counts, bg, stats=stats, **kw)
+    pairs, live = stats["pair_pixels"], stats["live_pair_pixels"]
+    t_n, k_cap, pw = rows.shape
+    c = ker["d_packed"].shape[1] - 6      # the real channels, padding apart
+    valid_row_bytes = n_valid * pw * 4
+    out_bytes = t_n * (pw - 7) * 256 * 4
+    f_bound = bound(valid_row_bytes + t_n * 4 + 12 + out_bytes,
+                    forward_ops(pairs, live, c))
+    b_bound = bound(valid_row_bytes + t_n * 4 + out_bytes + t_n * 256 * 4
+                    + rows.numel() * 4, backward_ops(pairs, live, c))
+    f_ms = time_ms(lambda: C.composite_tiles(rows, counts, bg, **kw), 20)
+    fp_ms = time_ms(lambda: C.composite_tiles_plain(rows, counts, bg, **kw),
+                    1)
+    b_ms = time_ms(lambda: C.composite_tiles_backward(
+        rows, counts, g_out, total, **kw), 20)
+    bp_ms = time_ms(lambda: C.composite_tiles_backward_plain(
+        rows, counts, g_out, total, **kw), 1)
+    print(f"[10] step 1 rows [{t_n}, {k_cap}, {pw}], {pairs} evaluated "
+          f"pair-pixels of which {live} live, {c} channels: forward kernel {f_ms:.3f} ms (bound "
+          f"{f_bound[0]:.4f} by {f_bound[1]}), plain {fp_ms:.1f} ms; "
+          f"backward kernel {b_ms:.3f} ms (bound {b_bound[0]:.4f} by "
+          f"{b_bound[1]}), plain {bp_ms:.1f} ms", flush=True)
+    # the scatter-add of the gradient rows, with the lists' invalid slots
+    # as bin_tiles fills them and all aimed at Gaussian 0
+    from langsplat4d_torch.render.composite_vjp import scatter_rows
+    packed0 = torch.zeros_like(ker["d_packed"])
+    at_zero = torch.where(ker["valid"], ker["entries"], 0)
+    sc = [time_ms(lambda: scatter_rows(ker["d_rows"], e, packed0), 20)
+          for e in (ker["entries"], at_zero)]
+    print(f"[10] scatter-add of {ker['d_rows'].shape[0] * k_cap} gradient "
+          f"rows: {sc[0]:.3f} ms; with every invalid slot at index 0 "
+          f"{sc[1]:.3f} ms", flush=True)
+    per_step = [x / (steps + 1) for x in launches]
+    print(f"[10] launches per step: forward {per_step[0]:.2f}, backward "
+          f"{per_step[1]:.2f}", flush=True)
+    print(f"[10] kernel / bound: forward {f_ms / f_bound[0]:.2f}, backward "
+          f"{b_ms / b_bound[0]:.2f}", flush=True)
+    profile_steps(cfg, state, batch, bg, ms_step)
+    return [
+        dict(name="composite_tiles", launches=launches[0],
+             max_abs_err=fwd_err, ms=f_ms, plain_ms=fp_ms,
+             bound_ms=f_bound[0], bound_by=f_bound[1]),
+        dict(name="composite_tiles_backward", launches=launches[1],
+             max_abs_err=float((ker["d_rows"] - ref["d_rows"]).abs().max()),
+             ms=b_ms, plain_ms=bp_ms, bound_ms=b_bound[0],
+             bound_by=b_bound[1]),
+    ]
 
 
 def frame_stream(settings, dcfg, gs, net, aabb, view, grid_spatial, events):
@@ -192,7 +722,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not os.path.isfile(os.path.join(REPO, KERNEL_SOURCE)):
+    if not all(os.path.isfile(os.path.join(REPO, src))
+               for src, _ in KERNELS.values()):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
@@ -211,8 +742,8 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # 1. build
-    print(f"[1] kernel build+load: {composite.build_seconds():.2f} s",
-          flush=True)
+    print(f"[1] build+load of {len(composite.KERNELS)} kernels, in "
+          f"parallel: {composite.build_seconds():.2f} s", flush=True)
 
     # 2. kernel vs plain on synthetic segments
     errs = []
@@ -279,7 +810,9 @@ def main():
             kw = dict(tiles_x=st.tiles_x, tiles_y=st.tiles_y, tile_size=ts,
                       height=st.image_height, width=st.image_width,
                       hard_cutoffs=True)
-            ref = composite.composite_stream_plain(rows, starts, bg, **kw)
+            stats = {}
+            ref = composite.composite_stream_plain(rows, starts, bg,
+                                                   stats=stats, **kw)
             torch.cuda.synchronize()
             if img.shape != (9, 1014, 1352) or not torch.isfinite(img).all():
                 raise AssertionError(f"bad frame {tuple(img.shape)}")
@@ -304,16 +837,51 @@ def main():
                 rows, starts, bg, **kw), 20)
             p_ms = time_ms(lambda: composite.composite_stream_plain(
                 rows, starts, bg, **kw), 1)
-            timing[ts] = (k_ms, p_ms)
-            print(f"[5] ts={ts}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
-                  flush=True)
+            pw = rows.shape[1]
+            s_bound = bound(
+                valid * pw * 4 + starts.numel() * 4 + 12 + img.numel() * 4,
+                forward_ops(stats["pair_pixels"], stats["live_pair_pixels"],
+                            3 + dcfg.lang_dim + 1))    # rgb, language, depth
+            timing[ts] = (k_ms, p_ms, s_bound)
+            print(f"[5] ts={ts}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
+                  f"{stats['pair_pixels']} evaluated pair-pixels of which "
+                  f"{stats['live_pair_pixels']} live, bound "
+                  f"{s_bound[0]:.4f} ms by {s_bound[1]}: kernel / bound "
+                  f"{k_ms / s_bound[0]:.2f}", flush=True)
     shutil.rmtree(out_root, ignore_errors=True)
+    del gs, net, views, rows, starts, img, ref
+    torch.cuda.empty_cache()
 
-    k_ms, p_ms = timing[RENDER_TILE_SIZE]
-    print(json.dumps({"kernels": [{
-        "name": "composite_stream", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms}]}))
+    # 6. the kernels' resources, one line pair per row width 32, 24, 16
+    for name in composite.KERNELS:
+        for line in composite.ptxas_report(name).splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[6] {name}: {line.strip()}", flush=True)
+
+    # 7. the tile-list kernels vs plain on synthetic lists
+    for hard, pw in list_cases():
+        f_err, b_err, b_excess = compare_list_case(hard, pw, dev)
+        print(f"[7] hard={hard} pw={pw}: forward max abs err {f_err:.3g}, "
+              f"backward max abs err {b_err:.3g}, excess over rtol "
+              f"{GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']}: "
+              f"{b_excess:.3g}", flush=True)
+        if not f_err <= TOL:
+            raise AssertionError(f"forward kernel vs plain {f_err} > {TOL}")
+        if not b_excess <= 0:
+            raise AssertionError("backward kernel vs plain beyond the "
+                                 "gradient bound")
+
+    # 8-10. the training path
+    entries = train_phases(dev)
+
+    k_ms, p_ms, s_bound = timing[RENDER_TILE_SIZE]
+    entries.insert(0, dict(
+        name="composite_stream", launches=launches, max_abs_err=max(errs),
+        ms=k_ms, plain_ms=p_ms, bound_ms=s_bound[0], bound_by=s_bound[1]))
+    print(json.dumps({"kernels": [
+        dict(e, route="cuda", source=KERNELS[e["name"]][0],
+             replaces=KERNELS[e["name"]][1], library_ms=None)
+        for e in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from langsplat4d_torch.core import plyio
 from langsplat4d_torch.core import state as statelib
+from langsplat4d_torch.core.device import resolve_device
 from langsplat4d_torch.core.state import GaussianState
 from langsplat4d_torch.field.deformation import DeformConfig, DeformNetwork
 from langsplat4d_torch.interop import load_deformation
@@ -39,14 +41,12 @@ def search_for_max_iteration(folder: str, stage: str) -> Optional[int]:
 def load_trained_model(model_path: str, load_stage: str, iteration: int,
                        dcfg: DeformConfig, *, max_sh_degree: int = 3,
                        aabb=None, capacity: Optional[int] = None,
-                       seed: int = 0, device="cpu"):
+                       seed: int = 0, device=None):
     """Returns (TrainedModel, loaded_iteration); iteration -1 picks the
     latest `<load_stage>_iteration_*` directory. Without a deformation.pth
-    the network keeps its initialization from `seed`."""
-    # numpy-only PLY reader of the JAX package, imported here so that the
-    # render path (which never loads a PLY) imports nothing of that package
-    from langsplat4d.core import plyio
-
+    the network keeps its initialization from `seed`. `device=None` is the
+    current CUDA device (an error where there is none)."""
+    device = resolve_device(device)
     pc_dir = os.path.join(model_path, "point_cloud")
     if iteration == -1:
         iteration = search_for_max_iteration(pc_dir, load_stage)

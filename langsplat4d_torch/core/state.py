@@ -13,6 +13,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from langsplat4d_torch.core.device import resolve_device
+
 # Opacity logit of padded (inactive) rows; sigmoid(-30) ~ 1e-13.
 PAD_OPACITY_LOGIT = -30.0
 # Log-scale of padded rows; exp(-20) ~ 2e-9 world units.
@@ -61,8 +63,10 @@ class GaussianState:
 
 def from_arrays(xyz, features_dc, features_rest, scaling, rotation, opacity,
                 language_feature=None, capacity: Optional[int] = None,
-                lang_dim: int = 3, device="cpu") -> GaussianState:
-    """Padded GaussianState from dense (unpadded) numpy arrays."""
+                lang_dim: int = 3, device=None) -> GaussianState:
+    """Padded GaussianState from dense (unpadded) numpy arrays, on `device`
+    (None: the current CUDA device, an error where there is none)."""
+    device = resolve_device(device)
     n = int(np.shape(xyz)[0])
     cap = capacity if capacity is not None else round_capacity(n)
     if cap < n:

@@ -77,3 +77,31 @@ def safe_normalize(x: torch.Tensor, eps: float = 1e-9,
     sq = torch.sum(x * x, dim=dim, keepdim=True)
     norm = torch.sqrt(torch.clamp(sq, min=1e-30))
     return x / (norm + eps)
+
+
+def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int = 0,
+             lr_delay_mult: float = 1.0, max_steps: int = 1000000):
+    """Log-linear learning-rate interpolation with an optional delayed
+    warm-up (reference utils/general_utils.py:35-68). A plain function of
+    `step`: a Python number gives a Python float, a tensor gives a tensor."""
+    if torch.is_tensor(step):
+        step = step.to(torch.float32)
+        if lr_init == 0.0 and lr_final == 0.0:
+            return torch.zeros_like(step)
+        delay_rate = 1.0
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0, 1))
+        t = torch.clamp(step / max_steps, 0, 1)
+        lr = delay_rate * torch.exp(math.log(lr_init) * (1 - t)
+                                    + math.log(lr_final) * t)
+        return torch.where(step < 0, 0.0, lr)
+    if (lr_init == 0.0 and lr_final == 0.0) or step < 0:
+        return 0.0
+    delay_rate = 1.0
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
+    t = min(max(step / max_steps, 0.0), 1.0)
+    return delay_rate * math.exp(math.log(lr_init) * (1 - t)
+                                 + math.log(lr_final) * t)

@@ -22,28 +22,21 @@
 // and the time is the per-pixel dependent chain (T carries from one Gaussian
 // to the next) times the segment length; the early exit is what cuts it.
 //
-// Arithmetic follows the TPU kernel: power is the six per-Gaussian
-// coefficients against the basis [1, x, y, x^2, y^2, xy], summed as an fmaf
-// chain in basis order, and the coefficients use the same fused multiply-
-// adds: this is what the JAX package's kernel computes on the CPU, bit for
-// bit. At 32-px tiles the coefficient form loses up to ~3e-4 of power to
-// cancellation (k0 reaches ~800 for a 1-px splat 40 px from the tile
-// origin), so a different rounding anywhere shows as ~1e-4 in the image;
-// the form is kept for parity with the reference. Built with
-// --fmad=false and plain expf (no fast math) so that nothing else fuses: the
-// operations and their order match composite_stream_plain in
-// ops/composite.py, and the two agree on every power > 0 and alpha < 1/255
-// test.
+// Arithmetic (composite_common.cuh) follows the TPU kernel: this is what the
+// JAX package's kernel computes on the CPU, bit for bit. At 32-px tiles the
+// coefficient form loses up to ~3e-4 of power to cancellation (k0 reaches
+// ~800 for a 1-px splat 40 px from the tile origin), so a different rounding
+// anywhere shows as ~1e-4 in the image; the form is kept for parity with the
+// reference. The operations and their order match composite_stream_plain in
+// ops/composite.py.
 
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int HDR = 8;       // header columns before the feature block
+using namespace ls4d;
+
 constexpr int BATCH = 256;   // rows staged per pass
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float T_EPS = 1e-4f;
-constexpr float MAX_ALPHA = 0.99f;
 
 template <int PW>
 __global__ void __launch_bounds__(1024)
@@ -69,9 +62,7 @@ composite_stream_kernel(const float* __restrict__ rows,
   const bool inside = px < width && py < height;
   const float ox = static_cast<float>(tx * tile_size);
   const float oy = static_cast<float>(ty * tile_size);
-  const float x = static_cast<float>(lx);
-  const float y = static_cast<float>(ly);
-  const float xx = x * x, yy = y * y, xy = x * y;
+  const PixelBasis basis(lx, ly);
 
   const int seg_begin = starts[tile];
   const int seg_end = starts[tile + 1];
@@ -92,47 +83,10 @@ composite_stream_kernel(const float* __restrict__ rows,
     } else {
       __syncthreads();
     }
-    const float* src = rows + static_cast<size_t>(b0) * PW;
-    for (int i = tid; i < nb * PW; i += nthreads) s_rows[i] = src[i];
-    __syncthreads();
-    for (int j = tid; j < nb; j += nthreads) {
-      const float* r = s_rows + j * PW;
-      const float mx = r[0] - ox;
-      const float my = r[1] - oy;
-      const float c0 = r[2], c1 = r[3], c2 = r[4];
-      float* k = s_coef + j * 8;
-      k[0] = fmaf(-0.5f, fmaf(c0 * mx, mx, c2 * my * my), -(c1 * mx * my));
-      k[1] = fmaf(c1, my, c0 * mx);
-      k[2] = fmaf(c2, my, c1 * mx);
-      k[3] = -0.5f * c0;
-      k[4] = -0.5f * c2;
-      k[5] = -c1;
-      k[6] = r[5];
-    }
-    __syncthreads();
-    if (done) continue;
-    for (int j = 0; j < nb; ++j) {
-      const float* k = s_coef + j * 8;
-      float power = k[0];
-      power = fmaf(k[1], x, power);
-      power = fmaf(k[2], y, power);
-      power = fmaf(k[3], xx, power);
-      power = fmaf(k[4], yy, power);
-      power = fmaf(k[5], xy, power);
-      if (power > 0.0f) continue;
-      const float alpha = fminf(MAX_ALPHA, expf(power + k[6]));
-      if (hard && alpha < ALPHA_MIN) continue;
-      const float test_T = T * (1.0f - alpha);
-      if (hard && test_T < T_EPS) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
-      const float* f = s_rows + j * PW + HDR;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] = acc[c] + f[c] * w;
-      asum = asum + w;
-      T = test_T;
+    stage_rows<PW>(rows + static_cast<size_t>(b0) * PW, nb, ox, oy, s_rows,
+                   s_coef, tid, nthreads);
+    if (!done) {
+      blend_staged<PW>(s_rows, s_coef, nb, basis, hard, &T, acc, &asum, &done);
     }
   }
 
@@ -180,8 +134,4 @@ extern "C" int ls4d_composite_stream(const float* rows, const int* starts,
       return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* ls4d_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

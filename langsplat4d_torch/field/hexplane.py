@@ -106,3 +106,40 @@ def dense_grid_query(grid: DenseGrid, aabb: torch.Tensor,
     out = F.grid_sample(grid.grid, ind.reshape(1, 1, 1, -1, 3),
                         mode="bilinear", align_corners=True)
     return out.reshape(grid.grid.shape[1], -1).T
+
+
+# Plane regularizers (reference scene/regulation.py and
+# scene/gaussian_model.py:763-802)
+
+def _plane_smoothness(plane: torch.Tensor) -> torch.Tensor:
+    """Mean squared second difference along H (dim -2); for time planes H is
+    the time axis."""
+    first = plane[..., 1:, :] - plane[..., :-1, :]
+    second = first[..., 1:, :] - first[..., :-1, :]
+    return torch.mean(second ** 2)
+
+
+def _sum_over_planes(field: HexPlaneField, plane_ids, fn) -> torch.Tensor:
+    return sum(fn(planes[i]) for planes in field.grids for i in plane_ids)
+
+
+def _l1_from_one(plane: torch.Tensor) -> torch.Tensor:
+    """mean |1 - plane|. Written with `where` so that the derivative at
+    plane == 1 is that of the d >= 0 branch, as the JAX package's abs has it
+    (torch.abs has 0 there): the time planes start at exactly 1."""
+    d = 1.0 - plane
+    return torch.mean(torch.where(d >= 0, d, -d))
+
+
+def compute_regulation(field: HexPlaneField, time_smoothness_weight: float,
+                       l1_time_planes_weight: float,
+                       plane_tv_weight: float) -> torch.Tensor:
+    """Reference GaussianModel.compute_regulation: smoothness of the spatial
+    planes, smoothness of the time planes, and |1 - plane| on the time
+    planes, each with its weight."""
+    return (plane_tv_weight
+            * _sum_over_planes(field, SPATIAL_PLANE_IDS, _plane_smoothness)
+            + time_smoothness_weight
+            * _sum_over_planes(field, TIME_PLANE_IDS, _plane_smoothness)
+            + l1_time_planes_weight
+            * _sum_over_planes(field, TIME_PLANE_IDS, _l1_from_one))

@@ -1,12 +1,25 @@
-"""Stream compositing: each tile blends its segment of the (tile, depth)
-sorted stream front to back (port of the `composite_stream_pallas` /
-`_stream_kernel` TPU kernel in langsplat4d/ops/tile_composite.py).
+"""The compositors: each tile blends its Gaussians front to back (ports of
+the TPU kernels in langsplat4d/ops/tile_composite.py).
 
-`composite_stream` launches the hand-written CUDA kernel
-(csrc/composite_stream.cu) for CUDA tensors and runs the plain PyTorch
-version, `composite_stream_plain`, for CPU tensors only. The kernel is
-compiled with nvcc at first use into `_build/` (keyed by a hash of the
-source) and bound with ctypes.
+- `composite_stream` (TPU kernel `composite_stream_pallas` / `_stream_kernel`):
+  the render path; each tile blends its ragged segment of the (tile, depth)
+  sorted stream and the image [C+1, H, W] is written directly.
+- `composite_tiles` (`composite_tiles_pallas` / `_composite_kernel`): the
+  training forward; each tile blends the first counts[t] rows of its padded
+  list and writes accum [T, C+1, px].
+- `composite_tiles_backward` (`composite_backward_pallas` /
+  `_backward_kernel`): per-(tile, slot) gradient rows of that blend.
+
+Each wrapper launches its hand-written CUDA kernel (csrc/*.cu) for CUDA
+tensors and runs the plain PyTorch version beside it (`*_plain`) for CPU
+tensors only. The kernels are compiled with nvcc at first use into `_build/`
+(keyed by a hash of the source, the shared header and the flags), one library
+per source, and bound with ctypes.
+
+The tile-list kernels hold their rows row-major, [T, K, PW]: a tile's rows
+are one contiguous run that a block stages with coalesced loads. The TPU
+kernels hold [T, PW, K] (K on lanes); callers that compare with them swap the
+last two axes.
 
 Per pixel:
 - power = -1/2 (c0 dx^2 + c2 dy^2) - c1 dx dy, evaluated as the TPU kernel
@@ -18,16 +31,18 @@ Per pixel:
   rounding shows as ~1e-4 in the image.
 - alpha = min(0.99, exp(power + ln_op)); a Gaussian is skipped when
   power > 0 or, with hard cutoffs, alpha < 1/255.
-- With hard cutoffs the pixel stops before the first Gaussian that would
-  take T below 1e-4 (the CUDA reference's rule).
+- With hard cutoffs the pixel stops for good before the first Gaussian that
+  would take T below 1e-4 (the CUDA reference's rule).
 - bg * T is added to rgb. Output channels are the feature rows (rgb, lang,
   depth, padding) then alpha.
 
-Both versions do the same float32 operations in the same order: the kernel
-uses fmaf for the chain and is built with --fmad=false so that nothing else
-fuses; the plain version forms each fused multiply-add from an exact float64
-product. So they agree bit for bit unless the device's expf differs from
-PyTorch's.
+The forward kernels and their plain versions do the same float32 operations
+in the same order: the kernels use fmaf for the chain and are built with
+--fmad=false so that nothing else fuses; the plain versions form each fused
+multiply-add from an exact float64 product. So they agree bit for bit unless
+the device's expf differs from PyTorch's. The backward kernel sums over a
+tile's pixels in another order than its plain version (warp shuffles), so
+those two agree to rounding only.
 """
 from __future__ import annotations
 
@@ -39,6 +54,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,16 +64,33 @@ T_EPS = 1e-4
 MAX_ALPHA = 0.99
 
 SUPPORTED_ROW_WIDTHS = (16, 24, 32)
-SUPPORTED_TILE_SIZES = (16, 32)
+SUPPORTED_TILE_SIZES = (16, 32)        # the stream kernel's
+LIST_TILE_SIZE = 16                    # the tile-list kernels'
 
 _PKG = Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PKG / "csrc" / "composite_stream.cu"
+CSRC = _PKG / "csrc"
+COMMON_HEADER = CSRC / "composite_common.cuh"
 BUILD_DIR = _PKG / "_build"
+# one library per kernel source; the C entry point is "ls4d_" + name
+KERNELS = ("composite_stream", "composite_tiles", "composite_tiles_backward")
 # --fmad=false keeps a*b+c as two roundings, as PyTorch's separate
-# elementwise ops do, so the kernel's power sign tests (power > 0 kills a
-# Gaussian) agree with the plain version's bit for bit.
+# elementwise ops do, so the kernels' power sign tests (power > 0 kills a
+# Gaussian) agree with the plain versions' bit for bit. -Xptxas -v prints
+# each kernel's registers, shared memory and spills (kept in the build log).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+_C_ARGS = {   # pointers, then ints; the stream pointer is appended
+    "composite_stream": (4, 7),
+    "composite_tiles": (4, 5),
+    "composite_tiles_backward": (5, 5),
+}
+
+
+def kernel_source(name: str) -> Path:
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}; expected one of {KERNELS}")
+    return CSRC / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -70,44 +103,83 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> Path:
-    """Compile the kernel source into a shared library (cached by a hash of
-    the source and flags). Returns its path."""
-    src = KERNEL_SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"composite_stream_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd += ["-o", str(tmp), str(KERNEL_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib
+def library_path(name: str) -> Path:
+    """Where the library of kernel `name` is cached: keyed by a hash of its
+    source, the shared header and the flags."""
+    digest = hashlib.sha256(
+        kernel_source(name).read_bytes() + COMMON_HEADER.read_bytes()
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+
+
+def build_libraries(names=KERNELS) -> Dict[str, Path]:
+    """Compile the named kernel sources into shared libraries, one nvcc per
+    source, all started together; cached ones are not rebuilt. Returns their
+    paths. The compiler's output (the ptxas figures) is kept beside each
+    library as `<library>.log`."""
+    libs = {name: library_path(name) for name in names}
+    procs = {}
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(kernel_source(name))]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        libs[name].with_suffix(".log").write_text(out)
+        os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def ptxas_report(name: str) -> str:
+    """The compiler's output from the build of kernel `name`: registers,
+    shared memory and spills of every instantiation."""
+    return build_libraries((name,))[name].with_suffix(".log").read_text()
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library."""
-    lib = ctypes.CDLL(str(build_library()))
-    fn = lib.ls4d_composite_stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (first use) and load the library of kernel `name`."""
+    lib = ctypes.CDLL(str(build_libraries((name,))[name]))
+    n_ptr, n_int = _C_ARGS[name]
+    fn = getattr(lib, "ls4d_" + name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.ls4d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ls4d_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def build_seconds() -> float:
-    """Time to build (or find) and load the kernel library."""
+def build_seconds(names=KERNELS) -> float:
+    """Time to build (or find) and load the named kernels' libraries."""
     t0 = time.perf_counter()
-    load_library()
+    build_libraries(names)
+    for name in names:
+        load_library(name)
     return time.perf_counter() - t0
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream; raises if the
+    launch is refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        lib = load_library(name)
+        err = getattr(lib, "ls4d_" + name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.ls4d_cuda_error_string(err).decode())
 
 
 def composite_stream(rows: torch.Tensor, starts: torch.Tensor,
@@ -127,21 +199,21 @@ def composite_stream(rows: torch.Tensor, starts: torch.Tensor,
     pw = rows.shape[1]
     out = torch.empty((pw - HDR + 1, height, width), dtype=torch.float32,
                       device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        lib = load_library()
-        err = lib.ls4d_composite_stream(
-            rows.data_ptr(), starts.data_ptr(), bg.data_ptr(),
-            out.data_ptr(), tiles_x * tiles_y, tiles_x, tile_size, height,
-            width, pw, int(hard_cutoffs), stream)
-    if err != 0:
-        raise RuntimeError("composite_stream kernel launch failed: "
-                           + lib.ls4d_cuda_error_string(err).decode())
+    _launch("composite_stream", rows.device, rows.data_ptr(),
+            starts.data_ptr(), bg.data_ptr(), out.data_ptr(),
+            tiles_x * tiles_y, tiles_x, tile_size, height, width, pw,
+            int(hard_cutoffs))
     composite_stream.launches += 1
     return out
 
 
 composite_stream.launches = 0
+
+
+def _check_on_device(device, **tensors):
+    for name, t in tensors.items():
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {device}")
 
 
 def _check_cuda_args(rows, starts, bg, num_tiles, tile_size):
@@ -159,9 +231,89 @@ def _check_cuda_args(rows, starts, bg, num_tiles, tile_size):
                          f"{tuple(starts.shape)} {starts.dtype}")
     if bg.dtype != torch.float32 or bg.shape != (3,):
         raise ValueError(f"bg must be [3] float32, got {tuple(bg.shape)}")
-    for name, t in (("rows", rows), ("starts", starts), ("bg", bg)):
-        if t.device != rows.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {rows.device}")
+    _check_on_device(rows.device, rows=rows, starts=starts, bg=bg)
+
+
+def _check_list_args(rows, counts, tile_size):
+    if rows.dtype != torch.float32 or rows.dim() != 3:
+        raise ValueError(f"rows must be [T, K, PW] float32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if rows.shape[2] not in SUPPORTED_ROW_WIDTHS:
+        raise ValueError(f"row width {rows.shape[2]} not in "
+                         f"{SUPPORTED_ROW_WIDTHS}")
+    if tile_size != LIST_TILE_SIZE:
+        raise ValueError(f"tile size {tile_size}: the tile-list kernels "
+                         f"take {LIST_TILE_SIZE}")
+    if counts.dtype != torch.int32 or counts.shape != (rows.shape[0],):
+        raise ValueError(f"counts must be [{rows.shape[0]}] int32, got "
+                         f"{tuple(counts.shape)} {counts.dtype}")
+    _check_on_device(rows.device, rows=rows, counts=counts)
+
+
+def composite_tiles(rows: torch.Tensor, counts: torch.Tensor,
+                    bg: torch.Tensor, *, tiles_x: int, tile_size: int = 16,
+                    hard_cutoffs: bool = True) -> torch.Tensor:
+    """rows [T, K, PW] f32 per-tile lists, front to back and front-compacted;
+    counts [T] int32 valid rows per tile; bg [3] -> accum [T, PW - 8 + 1, px]
+    (features with bg * T added to rgb, then the alpha sum). The tile origin
+    comes from the tile id."""
+    if rows.device.type == "cpu":
+        return composite_tiles_plain(rows, counts, bg, tiles_x=tiles_x,
+                                     tile_size=tile_size,
+                                     hard_cutoffs=hard_cutoffs)
+    if rows.device.type != "cuda":
+        raise ValueError(f"composite_tiles: no kernel for {rows.device}")
+    _check_list_args(rows, counts, tile_size)
+    if bg.dtype != torch.float32 or bg.shape != (3,):
+        raise ValueError(f"bg must be [3] float32, got {tuple(bg.shape)}")
+    _check_on_device(rows.device, bg=bg)
+    num_tiles, k, pw = rows.shape
+    out = torch.empty((num_tiles, pw - HDR + 1, tile_size * tile_size),
+                      dtype=torch.float32, device=rows.device)
+    _launch("composite_tiles", rows.device, rows.data_ptr(),
+            counts.data_ptr(), bg.data_ptr(), out.data_ptr(), num_tiles, k,
+            tiles_x, pw, int(hard_cutoffs))
+    composite_tiles.launches += 1
+    return out
+
+
+composite_tiles.launches = 0
+
+
+def composite_tiles_backward(rows: torch.Tensor, counts: torch.Tensor,
+                             g_out: torch.Tensor, total: torch.Tensor, *,
+                             tiles_x: int, tile_size: int = 16,
+                             hard_cutoffs: bool = True) -> torch.Tensor:
+    """rows, counts as `composite_tiles`; g_out [T, PW - 8 + 1, px] the
+    cotangent of accum; total [T, px] = sum_c accum * g_out -> d_rows
+    [T, K, PW], one gradient row per (tile, slot): [dmx, dmy, dc0, dc1, dc2,
+    d_op, 0, 0, d_feat ...], zero beyond the walked slots. The caller
+    scatter-adds the rows to the Gaussians."""
+    if rows.device.type == "cpu":
+        return composite_tiles_backward_plain(
+            rows, counts, g_out, total, tiles_x=tiles_x, tile_size=tile_size,
+            hard_cutoffs=hard_cutoffs)
+    if rows.device.type != "cuda":
+        raise ValueError(
+            f"composite_tiles_backward: no kernel for {rows.device}")
+    _check_list_args(rows, counts, tile_size)
+    num_tiles, k, pw = rows.shape
+    px = tile_size * tile_size
+    for name, t, shape in (("g_out", g_out, (num_tiles, pw - HDR + 1, px)),
+                           ("total", total, (num_tiles, px))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name} must be {list(shape)} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    _check_on_device(rows.device, g_out=g_out, total=total)
+    d_rows = torch.empty_like(rows)
+    _launch("composite_tiles_backward", rows.device, rows.data_ptr(),
+            counts.data_ptr(), g_out.data_ptr(), total.data_ptr(),
+            d_rows.data_ptr(), num_tiles, k, tiles_x, pw, int(hard_cutoffs))
+    composite_tiles_backward.launches += 1
+    return d_rows
+
+
+composite_tiles_backward.launches = 0
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -170,13 +322,96 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+class _TileGrid:
+    """Tile origins [T, 1] and the tile-local pixel basis [px] of a grid."""
+
+    def __init__(self, num_tiles: int, tiles_x: int, ts: int, dev):
+        tile = torch.arange(num_tiles, device=dev)
+        self.ox = ((tile % tiles_x) * ts).float()[:, None]
+        self.oy = ((tile // tiles_x) * ts).float()[:, None]
+        self.lx = torch.arange(ts, device=dev).repeat(ts).float()
+        self.ly = torch.arange(ts, device=dev).repeat_interleave(ts).float()
+        self.xx, self.yy, self.xy = (self.lx * self.lx, self.ly * self.ly,
+                                     self.lx * self.ly)
+
+    def alpha(self, r: torch.Tensor, hard_cutoffs: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One row per tile, r [T, PW] -> (alpha_raw, alpha, skip), each
+        [T, px]: the kernels' power chain and cutoff rule."""
+        mx = r[:, 0:1] - self.ox
+        my = r[:, 1:2] - self.oy
+        c0, c1, c2, ln_op = r[:, 2:3], r[:, 3:4], r[:, 4:5], r[:, 5:6]
+        k0 = (-0.5 * _fma(c0 * mx, mx, c2 * my * my).double()
+              - (c1 * mx * my).double()).float()
+        k1 = _fma(c1, my, c0 * mx)
+        k2 = _fma(c2, my, c1 * mx)
+        power = k0
+        for coef, basis in ((k1, self.lx), (k2, self.ly),
+                            (-0.5 * c0, self.xx), (-0.5 * c2, self.yy),
+                            (-c1, self.xy)):
+            power = _fma(coef, basis, power)
+        alpha_raw = torch.exp(power + ln_op)
+        alpha = torch.clamp(alpha_raw, max=MAX_ALPHA)
+        skip = power > 0.0
+        if hard_cutoffs:
+            skip = skip | (alpha < ALPHA_MIN)
+        return alpha_raw, alpha, skip
+
+
+def _blend_plain(row_at, kmax: int, grid: _TileGrid, c_feat: int,
+                 bg: torch.Tensor, hard_cutoffs: bool,
+                 stats: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential front-to-back blend of every tile's k-th Gaussian at step
+    k, for all tiles and pixels at once. `row_at(k)` gives (r [T, PW], valid
+    [T, 1]). Returns (acc [C, T, px] with bg * T added to rgb, asum [T, px]).
+    With a `stats` dict, stats["pair_pixels"] becomes the number of
+    (Gaussian, pixel) pairs evaluated: each pixel counts the Gaussians of
+    its list up to and including the one it stops at; and
+    stats["live_pair_pixels"] the number of those that are blended (not
+    skipped by power > 0 or alpha < 1/255, and not the pair a pixel stops
+    at). That is the work these inputs need, whatever the batching of a
+    kernel: an evaluated pair costs its alpha, only a live one the blend.
+    """
+    num_tiles, px = grid.ox.shape[0], grid.lx.shape[0]
+    dev = grid.ox.device
+    T = torch.ones((num_tiles, px), device=dev)
+    acc = torch.zeros((c_feat, num_tiles, px), device=dev)
+    asum = torch.zeros_like(T)
+    done = torch.zeros_like(T, dtype=torch.bool)
+    evaluated = torch.zeros((), dtype=torch.int64, device=dev)
+    blended = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(kmax):
+        r, valid = row_at(k)
+        if stats is not None:
+            evaluated += (valid & ~done).sum()
+        _, alpha, skip = grid.alpha(r, hard_cutoffs)
+        test_T = T * (1.0 - alpha)
+        live = valid & ~done & ~skip
+        if hard_cutoffs:
+            stop = live & (test_T < T_EPS)
+            done = done | stop
+            live = live & ~stop
+        if stats is not None:
+            blended += live.sum()
+        w = alpha * T
+        acc = torch.where(live, acc + r[:, HDR:].T[:, :, None] * w, acc)
+        asum = torch.where(live, asum + w, asum)
+        T = torch.where(live, test_T, T)
+    acc[:3] = acc[:3] + bg[:, None, None] * T
+    if stats is not None:
+        stats["pair_pixels"] = int(evaluated)
+        stats["live_pair_pixels"] = int(blended)
+    return acc, asum
+
+
 def composite_stream_plain(rows: torch.Tensor, starts: torch.Tensor,
                            bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
                            tile_size: int, height: int, width: int,
-                           hard_cutoffs: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the k-th Gaussian of every tile's
-    segment is blended at step k, for all tiles and pixels at once."""
-    dev = rows.device
+                           hard_cutoffs: bool = True,
+                           stats: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch version of the stream kernel (`stats`: see
+    `_blend_plain`)."""
     ts = tile_size
     num_tiles = tiles_x * tiles_y
     c_feat = rows.shape[1] - HDR
@@ -185,49 +420,92 @@ def composite_stream_plain(rows: torch.Tensor, starts: torch.Tensor,
     seg_len = starts[1:] - seg_start
     kmax = int(seg_len.max()) if num_tiles else 0
 
-    tile = torch.arange(num_tiles, device=dev)
-    ox = ((tile % tiles_x) * ts).float()[:, None]
-    oy = ((tile // tiles_x) * ts).float()[:, None]
-    lx = torch.arange(ts, device=dev).repeat(ts).float()
-    ly = torch.arange(ts, device=dev).repeat_interleave(ts).float()
-    xx, yy, xy = lx * lx, ly * ly, lx * ly
+    def row_at(k):
+        return (rows[torch.clamp(seg_start + k, max=rows.shape[0] - 1)],
+                (k < seg_len)[:, None])
 
-    T = torch.ones((num_tiles, ts * ts), device=dev)
-    acc = torch.zeros((c_feat, num_tiles, ts * ts), device=dev)
-    asum = torch.zeros_like(T)
-    done = torch.zeros_like(T, dtype=torch.bool)
-    for k in range(kmax):
-        valid = (k < seg_len)[:, None]
-        r = rows[torch.clamp(seg_start + k, max=rows.shape[0] - 1)]
-        mx = r[:, 0:1] - ox
-        my = r[:, 1:2] - oy
-        c0, c1, c2, ln_op = r[:, 2:3], r[:, 3:4], r[:, 4:5], r[:, 5:6]
-        k0 = (-0.5 * _fma(c0 * mx, mx, c2 * my * my).double()
-              - (c1 * mx * my).double()).float()
-        k1 = _fma(c1, my, c0 * mx)
-        k2 = _fma(c2, my, c1 * mx)
-        power = k0
-        for coef, basis in ((k1, lx), (k2, ly), (-0.5 * c0, xx),
-                            (-0.5 * c2, yy), (-c1, xy)):
-            power = _fma(coef, basis, power)
-        alpha = torch.clamp(torch.exp(power + ln_op), max=MAX_ALPHA)
-        skip = power > 0.0
-        if hard_cutoffs:
-            skip = skip | (alpha < ALPHA_MIN)
-        test_T = T * (1.0 - alpha)
-        live = valid & ~done & ~skip
-        if hard_cutoffs:
-            stop = live & (test_T < T_EPS)
-            done = done | stop
-            live = live & ~stop
-        w = alpha * T
-        acc = torch.where(live, acc + r[:, HDR:].T[:, :, None] * w, acc)
-        asum = torch.where(live, asum + w, asum)
-        T = torch.where(live, test_T, T)
-
-    acc[:3] = acc[:3] + bg[:, None, None] * T
+    acc, asum = _blend_plain(row_at, kmax,
+                             _TileGrid(num_tiles, tiles_x, ts, rows.device),
+                             c_feat, bg, hard_cutoffs, stats)
     img = torch.cat([acc, asum[None]], dim=0)           # [C+1, T, px]
     img = img.reshape(c_feat + 1, tiles_y, tiles_x, ts, ts)
     img = img.permute(0, 1, 3, 2, 4).reshape(c_feat + 1, tiles_y * ts,
                                               tiles_x * ts)
     return img[:, :height, :width].contiguous()
+
+
+def composite_tiles_plain(rows: torch.Tensor, counts: torch.Tensor,
+                          bg: torch.Tensor, *, tiles_x: int,
+                          tile_size: int = 16,
+                          hard_cutoffs: bool = True,
+                          stats: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch version of the tile-list forward kernel (`stats`: see
+    `_blend_plain`)."""
+    num_tiles, k_cap, pw = rows.shape
+    kmax = min(int(counts.max()), k_cap) if num_tiles else 0
+
+    def row_at(k):
+        return rows[:, k], (k < counts)[:, None]
+
+    acc, asum = _blend_plain(
+        row_at, kmax, _TileGrid(num_tiles, tiles_x, tile_size, rows.device),
+        pw - HDR, bg, hard_cutoffs, stats)
+    return torch.cat([acc, asum[None]], dim=0).permute(1, 0, 2).contiguous()
+
+
+def composite_tiles_backward_plain(rows: torch.Tensor, counts: torch.Tensor,
+                                   g_out: torch.Tensor, total: torch.Tensor,
+                                   *, tiles_x: int, tile_size: int = 16,
+                                   hard_cutoffs: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the tile-list backward kernel: the same
+    front-to-back re-walk, one list slot per step."""
+    num_tiles, k_cap, pw = rows.shape
+    c_feat = pw - HDR
+    grid = _TileGrid(num_tiles, tiles_x, tile_size, rows.device)
+    basis = torch.stack([torch.ones_like(grid.lx), grid.lx, grid.ly, grid.xx,
+                         grid.yy, grid.xy])              # [6, px]
+    g_feat = g_out[:, :c_feat]                           # [T, C, px]
+    g_alpha = g_out[:, c_feat]                           # [T, px]
+    kmax = min(int(counts.max()), k_cap) if num_tiles else 0
+
+    d_rows = torch.zeros_like(rows)
+    T = torch.ones_like(total)
+    prefix = torch.zeros_like(total)
+    done = torch.zeros_like(total, dtype=torch.bool)
+    for k in range(kmax):
+        r = rows[:, k]
+        alpha_raw, alpha, skip = grid.alpha(r, hard_cutoffs)
+        test_T = T * (1.0 - alpha)
+        live = (k < counts)[:, None] & ~done & ~skip
+        if hard_cutoffs:
+            stop = live & (test_T < T_EPS)
+            done = done | stop
+            live = live & ~stop
+        w = torch.where(live, alpha * T, 0.0)
+        phi = (r[:, HDR:, None] * g_feat).sum(1) + g_alpha
+        prefix = prefix + w * phi
+        d_alpha = torch.where(
+            live & (alpha_raw < MAX_ALPHA),
+            T * phi - (total - prefix) / torch.clamp(1.0 - alpha, min=1e-6),
+            0.0)
+        da = d_alpha * alpha                             # dL/dpower [T, px]
+        d = (da[:, None, :] * basis).sum(-1)             # [T, 6]
+        mx = r[:, 0] - grid.ox[:, 0]
+        my = r[:, 1] - grid.oy[:, 0]
+        c0, c1, c2, ln_op = r[:, 2], r[:, 3], r[:, 4], r[:, 5]
+        d_rows[:, k, 0] = ((-c0 * mx - c1 * my) * d[:, 0] + c0 * d[:, 1]
+                           + c1 * d[:, 2])
+        d_rows[:, k, 1] = ((-c2 * my - c1 * mx) * d[:, 0] + c1 * d[:, 1]
+                           + c2 * d[:, 2])
+        d_rows[:, k, 2] = (-0.5 * mx * mx * d[:, 0] + mx * d[:, 1]
+                           - 0.5 * d[:, 3])
+        d_rows[:, k, 3] = (-mx * my * d[:, 0] + my * d[:, 1] + mx * d[:, 2]
+                           - d[:, 5])
+        d_rows[:, k, 4] = (-0.5 * my * my * d[:, 0] + my * d[:, 2]
+                           - 0.5 * d[:, 4])
+        # d_op = d_ln_op / op; the padded slots' sentinel ln_op is guarded
+        d_rows[:, k, 5] = torch.where(ln_op > -1e29,
+                                      d[:, 0] * torch.exp(-ln_op), 0.0)
+        d_rows[:, k, HDR:] = (g_feat * w[:, None, :]).sum(-1)
+        T = torch.where(live, test_T, T)
+    return d_rows

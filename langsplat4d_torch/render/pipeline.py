@@ -49,7 +49,11 @@ def prepare_attributes(dcfg: DeformConfig, stage: str, time: float,
         else:
             stage_dcfg = dataclasses.replace(
                 dcfg, use_discrete_lang_f="discrete" in stage)
-        times = torch.full((n, 1), float(time), device=gs.device)
+        if torch.is_tensor(time):       # stays on its device: no host sync
+            times = time.to(gs.device, torch.float32).reshape(1, 1).expand(
+                n, 1)
+        else:
+            times = torch.full((n, 1), float(time), device=gs.device)
         (means3d, scales, rotations, opacity, shs, lang,
          coff) = deform_forward(net, stage_dcfg, aabb, means3d, scales,
                                 rotations, opacity, shs, lang, times,
@@ -68,9 +72,12 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
            scaling_modifier: float = 1.0,
            override_color: Optional[torch.Tensor] = None,
            nonormalized: bool = False,
-           grid_spatial=None) -> Dict[str, Optional[torch.Tensor]]:
+           grid_spatial=None,
+           means2d_dummy: Optional[torch.Tensor] = None
+           ) -> Dict[str, Optional[torch.Tensor]]:
     """One render. Returns render, language_feature_image (None in base
-    stages), visibility_filter, radii, depth and coff."""
+    stages), viewspace_points (the `means2d_dummy` gradient tap, if given),
+    visibility_filter, radii, depth and coff."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; expected one of {STAGES}")
     (means3d, scales_act, rotations_act, opacity_act, shs, lang,
@@ -80,10 +87,11 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
     rendered, lang_img, radii, depth = rasterize(
         settings, cam, means3d, opacity_act, scales_act, rotations_act,
         shs if override_color is None else None, override_color, lang, bg,
-        active=gs.active_mask())
+        active=gs.active_mask(), means2d_dummy=means2d_dummy)
     return {
         "render": rendered,
         "language_feature_image": None if "base" in stage else lang_img,
+        "viewspace_points": means2d_dummy,
         "visibility_filter": radii > 0,
         "radii": radii,
         "depth": depth,

@@ -1,11 +1,15 @@
-"""Tile-based Gaussian rasterizer, render path (port of
-langsplat4d/render/raster.py, stream path only).
+"""Tile-based Gaussian rasterizer (port of langsplat4d/render/raster.py: the
+stream path for rendering and the tile-list analytic-VJP path for training).
 
 `preprocess` projects the Gaussians with the CUDA reference's semantics
 (frustum cull at view z <= 0.2, EWA covariance with +0.3 dilation, SH clamp
-at 0); `rasterize` bins them with the exact duplicate-and-sort stream
-(render/stream.py) and composites each tile's segment with the hand-written
-kernel (ops/composite.py), which writes the [C, H, W] image directly.
+at 0) and is differentiable under autograd. `rasterize` bins them with the
+exact duplicate-and-sort stream (render/stream.py) and then either
+composites each tile's segment with the stream kernel, which writes the
+[C, H, W] image directly (rendering), or, with `settings.analytic_vjp`, cuts
+per-tile lists of `tile_capacity` entries from the stream and composites
+them with the tile-list kernel and its hand-derived backward
+(render/composite_vjp.py), as the JAX package's training step does.
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ import torch
 
 from langsplat4d_torch.core.sh import eval_sh
 from langsplat4d_torch.ops.composite import composite_stream
-from langsplat4d_torch.render.stream import build_stream
+from langsplat4d_torch.render.composite_vjp import composite_cv
+from langsplat4d_torch.render.stream import bin_tiles, build_stream
 
 
 class CameraParams(NamedTuple):
@@ -38,6 +43,15 @@ class RasterSettings:
     tile_size: int = 16
     # CUDA cutoffs: alpha >= 1/255 and the T >= 1e-4 stop
     hard_cutoffs: bool = True
+    # The training path: per-tile lists of at most `tile_capacity` entries
+    # (the nearest ones; farther ones are dropped) composited by the
+    # tile-list kernel with its hand-derived backward. Off: the stream path.
+    analytic_vjp: bool = False
+    tile_capacity: Optional[int] = None
+
+    def __post_init__(self):
+        if self.analytic_vjp and self.tile_capacity is None:
+            raise ValueError("analytic_vjp needs a tile_capacity")
 
     @property
     def tiles_x(self) -> int:
@@ -61,9 +75,12 @@ def preprocess(settings: RasterSettings, cam: CameraParams,
                colors_precomp: Optional[torch.Tensor],  # [N, 3]
                cov3d_precomp: Optional[torch.Tensor] = None,  # [N, 6]
                active: Optional[torch.Tensor] = None,  # [N] bool
+               means2d_dummy: Optional[torch.Tensor] = None,  # [N, 2]
                ) -> Dict[str, torch.Tensor]:
     """Screen-space attributes per Gaussian: point_image, conic, depth,
-    opacity, radii, visible, rect_min, rect_max (tile units) and colors."""
+    opacity, radii, visible, rect_min, rect_max (tile units) and colors.
+    `means2d_dummy` (zeros) is added to the projected centre in NDC, so that
+    its gradient is the screen-space gradient the densification reads."""
     h, w = settings.image_height, settings.image_width
     focal_x = w / (2.0 * cam.tanfovx)
     focal_y = h / (2.0 * cam.tanfovy)
@@ -82,8 +99,13 @@ def preprocess(settings: RasterSettings, cam: CameraParams,
     pp_y = xform_row(P, 1)
     pp_w = xform_row(P, 3)
     inv_w = 1.0 / (pp_w + 1e-7)
-    pi_x = ((pp_x * inv_w + 1.0) * w - 1.0) * 0.5
-    pi_y = ((pp_y * inv_w + 1.0) * h - 1.0) * 0.5
+    ndc_x = pp_x * inv_w
+    ndc_y = pp_y * inv_w
+    if means2d_dummy is not None:
+        ndc_x = ndc_x + means2d_dummy[:, 0]
+        ndc_y = ndc_y + means2d_dummy[:, 1]
+    pi_x = ((ndc_x + 1.0) * w - 1.0) * 0.5
+    pi_y = ((ndc_y + 1.0) * h - 1.0) * 0.5
 
     if cov3d_precomp is not None:
         s_xx, s_xy, s_xz, s_yy, s_yz, s_zz = cov3d_precomp.unbind(1)
@@ -207,23 +229,58 @@ def preprocess(settings: RasterSettings, cam: CameraParams,
     )
 
 
+def pack_differentiable(prep: Dict[str, torch.Tensor],
+                        features: torch.Tensor) -> torch.Tensor:
+    """[N, 6 + C] rows [pix(2), conic(3), opacity, colors, features, depth]:
+    what the training compositor differentiates."""
+    return torch.cat([prep["point_image"], prep["conic"],
+                      prep["opacity"][:, None], prep["colors"], features,
+                      prep["depth"][:, None]], dim=1)
+
+
+def tiles_to_image(settings: RasterSettings,
+                   accum: torch.Tensor) -> torch.Tensor:
+    """[T, C, px] per-tile channels -> the cropped [C, H, W] image."""
+    ts, c_out = settings.tile_size, accum.shape[1]
+    img = accum.reshape(settings.tiles_y, settings.tiles_x, c_out, ts, ts)
+    img = img.permute(2, 0, 3, 1, 4).reshape(
+        c_out, settings.tiles_y * ts, settings.tiles_x * ts)
+    return img[:, :settings.image_height, :settings.image_width]
+
+
+def composite_lists(settings: RasterSettings, prep, features,
+                    bg) -> torch.Tensor:
+    """The training composite: tile lists -> the compositor with the
+    hand-derived backward -> [C + 1, H, W]."""
+    entries, valid = bin_tiles(settings, prep)
+    accum = composite_cv(settings, pack_differentiable(prep, features),
+                         entries, valid, bg)
+    return tiles_to_image(settings, accum)
+
+
 def rasterize(settings: RasterSettings, cam: CameraParams,
               means3d, opacities, scales, rotations, shs, colors_precomp,
               language_features: torch.Tensor,   # [N, L]
               bg: torch.Tensor,                  # [3]
-              cov3d_precomp=None, active=None):
-    """Forward render. Returns (rendered [3, H, W], language image [L, H, W],
-    radii [N], depth [1, H, W]) — the CUDA rasterizer's return signature
-    (reference gaussian_renderer/__init__.py:219-228)."""
+              cov3d_precomp=None, active=None, means2d_dummy=None):
+    """Returns (rendered [3, H, W], language image [L, H, W], radii [N],
+    depth [1, H, W]) — the CUDA rasterizer's return signature (reference
+    gaussian_renderer/__init__.py:219-228). Differentiable only with
+    `settings.analytic_vjp`."""
     prep = preprocess(settings, cam, means3d, opacities, scales, rotations,
-                      shs, colors_precomp, cov3d_precomp, active)
+                      shs, colors_precomp, cov3d_precomp, active,
+                      means2d_dummy)
     feats = (language_features if settings.include_feature
              else language_features.new_zeros((means3d.shape[0], 0)))
-    rows, starts = build_stream(settings, prep, feats)
-    img = composite_stream(
-        rows, starts, bg, tiles_x=settings.tiles_x, tiles_y=settings.tiles_y,
-        tile_size=settings.tile_size, height=settings.image_height,
-        width=settings.image_width, hard_cutoffs=settings.hard_cutoffs)
+    if settings.analytic_vjp:
+        img = composite_lists(settings, prep, feats, bg)
+    else:
+        rows, starts = build_stream(settings, prep, feats)
+        img = composite_stream(
+            rows, starts, bg, tiles_x=settings.tiles_x,
+            tiles_y=settings.tiles_y, tile_size=settings.tile_size,
+            height=settings.image_height, width=settings.image_width,
+            hard_cutoffs=settings.hard_cutoffs)
     c_lang = feats.shape[1]
     return (img[:3], img[3:3 + c_lang], prep["radii"],
             img[3 + c_lang:4 + c_lang])

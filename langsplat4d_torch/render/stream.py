@@ -68,16 +68,20 @@ def tile_min_quad(A, B, C, cx, cy, x0, x1, y0, y1):
     return torch.where(inside, 0.0, m)
 
 
-def sorted_pairs(settings, prep: Dict[str, torch.Tensor]
+def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
+                 ellipse_cull: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Emit and sort. -> (keys [M] int64 sorted, starts [T+1] int32,
     dorder [N] int64).
 
-    Rect slots whose tile lies wholly outside the alpha >= 1/255 ellipse
-    (min of the conic quadratic over the tile's pixels > 2 ln(255 op)) are
-    culled: the compositor would give them zero weight anyway. Culled slots
-    get the key `num_tiles << 32` and sort past the last segment, so the
-    valid pairs are keys[:starts[-1]].
+    With `ellipse_cull`, rect slots whose tile lies wholly outside the
+    alpha >= 1/255 ellipse (min of the conic quadratic over the tile's
+    pixels > 2 ln(255 op)) are culled: the compositor would give them zero
+    weight anyway. Culled slots get the key `num_tiles << 32` and sort past
+    the last segment, so the valid pairs are keys[:starts[-1]].
+
+    Gaussians of equal depth keep their index order (the depth sort is
+    stable), as the JAX package's top-k takes the lower index first.
     """
     ts = settings.tile_size
     tiles_x = settings.tiles_x
@@ -87,7 +91,7 @@ def sorted_pairs(settings, prep: Dict[str, torch.Tensor]
 
     # front-to-back order; invisible Gaussians sort last and never emit
     dorder = torch.argsort(torch.where(prep["visible"], prep["depth"],
-                                       float("inf")))
+                                       float("inf")), stable=True)
     rank = torch.empty(n, dtype=torch.int64, device=dev)
     rank[dorder] = torch.arange(n, device=dev)
 
@@ -105,16 +109,18 @@ def sorted_pairs(settings, prep: Dict[str, torch.Tensor]
     tx = rmin[gid, 0] + off % sx
     ty = rmin[gid, 1] + off // sx
 
-    conic = prep["conic"][gid]
-    pix = prep["point_image"][gid]
-    t2 = 2.0 * torch.log(torch.clamp(255.0 * prep["opacity"], min=1.0))
-    txf = tx.float()
-    tyf = ty.float()
-    q = tile_min_quad(conic[:, 0], conic[:, 1], conic[:, 2],
-                      pix[:, 0], pix[:, 1],
-                      txf * float(ts), txf * float(ts) + (ts - 1.0),
-                      tyf * float(ts), tyf * float(ts) + (ts - 1.0))
-    tile = torch.where(q <= t2[gid], ty * tiles_x + tx, num_tiles)
+    tile = ty * tiles_x + tx
+    if ellipse_cull:
+        conic = prep["conic"][gid]
+        pix = prep["point_image"][gid]
+        t2 = 2.0 * torch.log(torch.clamp(255.0 * prep["opacity"], min=1.0))
+        txf = tx.float()
+        tyf = ty.float()
+        q = tile_min_quad(conic[:, 0], conic[:, 1], conic[:, 2],
+                          pix[:, 0], pix[:, 1],
+                          txf * float(ts), txf * float(ts) + (ts - 1.0),
+                          tyf * float(ts), tyf * float(ts) + (ts - 1.0))
+        tile = torch.where(q <= t2[gid], tile, num_tiles)
     keys, _ = torch.sort((tile << RANK_BITS) | rank[gid])
     bounds = torch.arange(num_tiles + 1, device=dev) << RANK_BITS
     starts = torch.searchsorted(keys, bounds).to(torch.int32)
@@ -137,3 +143,34 @@ def build_stream(settings, prep: Dict[str, torch.Tensor],
     keys, starts, dorder = sorted_pairs(settings, prep)
     rows = gather_rows(pack_attribute_table(prep, features), keys, dorder)
     return rows, starts
+
+
+def bin_tiles(settings, prep: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile front-to-back lists for the training path, cut from the
+    sorted stream (the port of the JAX package's `bin_tiles`, whose top-k
+    cascade exists only because XLA needs static shapes). -> (entries [T, K]
+    int64 indices into the Gaussian arrays, valid [T, K] bool), K =
+    settings.tile_capacity: the first K Gaussians whose rect covers the tile,
+    in depth order, equal depths by lower index; no ellipse cull, as
+    `bin_tiles` has none. No gradient flows through the lists.
+
+    An invalid slot holds its own slot number modulo N, not one fixed index:
+    its gradient row is zero, but the backward scatter-adds every row, and
+    three quarters of a million zero rows aimed at one Gaussian serialise the
+    atomic adds (1.76 ms against 0.19 ms for the full-width scatter-add on
+    an H100)."""
+    prep = {k: prep[k].detach() for k in
+            ("depth", "visible", "rect_min", "rect_max")}
+    keys, starts, dorder = sorted_pairs(settings, prep, ellipse_cull=False)
+    k = settings.tile_capacity
+    n = dorder.shape[0]
+    col = torch.arange(k, device=keys.device)
+    slot = starts[:-1].long()[:, None] + col
+    valid = slot < starts[1:].long()[:, None]
+    filler = (torch.arange(settings.num_tiles, device=keys.device)[:, None]
+              * k + col) % n
+    if keys.numel() == 0:
+        return filler, valid
+    rank = keys[torch.clamp(slot, max=keys.numel() - 1)] & RANK_MASK
+    return torch.where(valid, dorder[rank], filler), valid

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from langsplat4d_torch.core import state as statelib
+from langsplat4d_torch.core.device import resolve_device
 from langsplat4d_torch.core.sh import rgb_to_sh
 
 
@@ -20,11 +21,13 @@ def realistic_gaussians(n: int, *, lang_dim: int = 3, seed: int = 0,
                         scale_sigma: float = 0.9, capacity: int | None = None,
                         cameras_extent: float = 5.0,
                         percent_dense: float = 0.01,
-                        straggler_frac: float = 0.015, device="cpu"
+                        straggler_frac: float = 0.015, device=None
                         ) -> statelib.GaussianState:
     """GaussianState with `n` active rows of trained-checkpoint-like
     statistics: clustered positions, log-normal scales softly capped at the
-    densify-split invariant, broad opacities, random rotations."""
+    densify-split invariant, broad opacities, random rotations. `device=None`
+    is the current CUDA device (an error where there is none)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     # positions: clusters flattened onto planes + a background shell

@@ -1,12 +1,15 @@
-"""The CUDA stream compositor against its plain PyTorch version, on the card
-(chip_smoke.py phase 2 at pytest scale). Skips where there is no CUDA
+"""The CUDA compositors against their plain PyTorch versions, on the card
+(chip_smoke.py phases 2 and 7 at pytest scale). Skips where there is no CUDA
 device; run on the GPU with `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda_kernel.py` (the suite's conftest imports jax, which
-the GPU machine lacks). Bound 3e-5, the repo's kernel bound."""
+the GPU machine lacks). Forward bound 3e-5, the repo's kernel bound; the
+backward kernel is held to the repo's gradient bound, rtol 2e-3 / atol 2e-4
+(its block reductions sum in another order than the plain version)."""
 import pytest
 import torch
 
-from chip_smoke import compare_case, kernel_cases
+from chip_smoke import (compare_case, compare_list_case, kernel_cases,
+                        list_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -41,3 +44,37 @@ def test_kernel_launch_is_counted_and_checked(cuda_device):
         composite_stream(torch.zeros((1, 12), device=cuda_device), starts,
                          bg, tiles_x=2, tiles_y=2, tile_size=16, height=20,
                          width=30)
+
+
+@pytest.mark.parametrize("case", list_cases(),
+                         ids=lambda c: f"hard{int(c[0])}-pw{c[1]}")
+def test_list_kernels_match_plain(cuda_device, case):
+    fwd_err, _, bwd_excess = compare_list_case(*case, device=cuda_device,
+                                               seed=1)
+    assert fwd_err <= 3e-5
+    assert bwd_excess <= 0.0
+
+
+def test_list_kernel_launches_are_counted_and_checked(cuda_device):
+    from langsplat4d_torch.ops.composite import (composite_tiles,
+                                                 composite_tiles_backward)
+    rows = torch.randn((3, 8, 16), device=cuda_device)
+    counts = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda_device)
+    before = composite_tiles.launches, composite_tiles_backward.launches
+    out = composite_tiles(rows, counts, bg, tiles_x=3)
+    g_out = torch.ones_like(out)
+    d_rows = composite_tiles_backward(rows, counts, g_out, (out * g_out).sum(1),
+                                      tiles_x=3)
+    torch.cuda.synchronize()
+    assert (composite_tiles.launches,
+            composite_tiles_backward.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want = torch.zeros((3, 9, 256), device=cuda_device)
+    want[:, :3] = bg[None, :, None]       # empty lists: bg, no alpha
+    assert torch.equal(out, want)
+    assert torch.equal(d_rows, torch.zeros_like(rows))
+    with pytest.raises(ValueError, match="tile size"):
+        composite_tiles(rows, counts, bg, tiles_x=3, tile_size=32)
+    with pytest.raises(ValueError, match="counts"):
+        composite_tiles(rows, counts.long(), bg, tiles_x=3)

@@ -42,7 +42,7 @@ def test_params_from_jax_matches_jax_state_dict(extra):
 
 def test_golden_deformation_loads_strictly():
     dcfg = DeformConfig(kplanes_resolution=(64, 64, 64, 25), multires=(1, 2))
-    net = load_deformation(GOLDEN, dcfg)
+    net = load_deformation(GOLDEN, dcfg, device="cpu")
     sd = torch.load(os.path.join(GOLDEN, "deformation.pth"),
                     map_location="cpu", weights_only=True)
     assert set(net.state_dict()) == set(sd)
@@ -56,7 +56,8 @@ def test_jax_written_deformation_with_buffers_loads(tmp_path):
     jcfg = JDeformConfig(**SMALL)
     params = init_deform_params(jax.random.PRNGKey(4), jcfg)
     save_deformation(str(tmp_path), params, cfg=jcfg)
-    net = load_deformation(str(tmp_path), DeformConfig(**SMALL))
+    net = load_deformation(str(tmp_path), DeformConfig(**SMALL),
+                           device="cpu")
     want = deform_params_to_torch_state_dict(jax.tree.map(np.asarray,
                                                           params))
     for k, v in want.items():
@@ -67,7 +68,7 @@ def test_jax_written_deformation_with_buffers_loads(tmp_path):
 def test_realistic_gaussians_match_jax():
     n = 700
     want = j_realistic(n, lang_dim=3, seed=5)
-    got = realistic_gaussians(n, lang_dim=3, seed=5)
+    got = realistic_gaussians(n, lang_dim=3, seed=5, device="cpu")
     assert got.num_active == int(want.num_active) == n
     assert got.capacity == want.capacity
     for name in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
@@ -82,9 +83,40 @@ def test_gaussians_from_numpy_roundtrip():
     arrays = {k: np.asarray(getattr(want, k)) for k in (
         "xyz", "features_dc", "features_rest", "scaling", "rotation",
         "opacity", "language_feature", "num_active")}
-    got = gaussians_from_numpy(arrays)
+    got = gaussians_from_numpy(arrays, device="cpu")
     assert got.num_active == 300 and got.max_sh_degree == 3
     np.testing.assert_array_equal(got.active_mask().numpy(),
                                   np.asarray(want.active_mask()))
     np.testing.assert_array_equal(got.get_features().numpy(),
                                   np.asarray(want.get_features()))
+
+
+def test_plyio_writes_and_reads_what_the_jax_package_does(tmp_path):
+    """The port's own PLY reader and writer against the JAX package's: the
+    same bytes out, the same arrays back, on the golden checkpoint's point
+    cloud and on a file the port wrote."""
+    from langsplat4d.core import plyio as JP
+    from langsplat4d_torch.core import plyio as TP
+    golden = os.path.join(GOLDEN, "point_cloud.ply")
+    want, got = JP.read_ply(golden), TP.read_ply(golden)
+    assert list(got) == list(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    dense_w = JP.ply_arrays_to_gaussians(want)
+    dense_g = TP.ply_arrays_to_gaussians(got)
+    assert set(dense_g) == set(dense_w)
+    for k in dense_w:
+        np.testing.assert_array_equal(dense_g[k], dense_w[k], err_msg=k)
+
+    arrays = TP.gaussians_to_ply_arrays(
+        dense_g["xyz"], dense_g["features_dc"], dense_g["features_rest"],
+        dense_g["language_feature"], dense_g["opacity"], dense_g["scaling"],
+        dense_g["rotation"])
+    TP.write_ply(str(tmp_path / "port.ply"), arrays)
+    JP.write_ply(str(tmp_path / "jax.ply"), JP.gaussians_to_ply_arrays(
+        **{k: dense_w[k] for k in dense_w}))
+    assert ((tmp_path / "port.ply").read_bytes()
+            == (tmp_path / "jax.ply").read_bytes())
+    back = TP.ply_arrays_to_gaussians(TP.read_ply(str(tmp_path / "port.ply")))
+    for k in dense_g:
+        np.testing.assert_array_equal(back[k], dense_g[k], err_msg=k)

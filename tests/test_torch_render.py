@@ -59,7 +59,8 @@ def golden():
     jd = JDeformConfig.from_config(cfg.hidden, cfg.runtime)
     td = DeformConfig.from_config(cfg.hidden, cfg.runtime)
     jstate, it = j_load(FIXTURE, "fine-lang", -1, jd)
-    model, it2 = load_trained_model(FIXTURE, "fine-lang", -1, td)
+    model, it2 = load_trained_model(FIXTURE, "fine-lang", -1, td,
+                                    device="cpu")
     assert it == it2 == 1200
     return cfg, jd, td, jstate, model
 
