@@ -5,7 +5,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 Phases, each failing the run on error:
-  1. build the three compositor kernels from csrc/ with nvcc, one nvcc per
+  1. build the six compositor kernels from csrc/ with nvcc, one nvcc per
      source, all started together;
   2. compare the stream kernel with its plain PyTorch version on synthetic
      segments (16- and 32-px tiles, hard cutoffs on and off, empty and long
@@ -32,12 +32,36 @@ Phases, each failing the run on error:
  10. per-stage device times of a step; kernel and plain times of both
      kernels on step 1's rows;
  11. torch.profiler over five steps: device kernels per step and the
-     device's busy share.
+     device's busy share (taken at the end of the run, with phase 15's
+     profile, so that no timing is taken with the profiler attached);
+ 12. the stream-layout training kernels against their plain versions on
+     synthetic ragged segments (empty tiles, one row, segments of more than
+     1000 rows, hard cutoffs on and off, row widths 16, 24 and 32): forward
+     <= 3e-5, backward within rtol 2e-3 / atol 2e-4 of each column's largest
+     entry;
+ 13. the training path on the stream layout: phase 8's workload and steps
+     with `stream_train` on in place of the tile lists, counting the
+     launches of the stream-layout forward and backward kernels;
+ 14. its step 1 stage by stage against the plain versions, as phase 9;
+ 15. its per-stage times, kernel and plain times, both kernels on the
+     longest segment alone, the list and stream steps timed in turns on one
+     state, and the profile;
+ 16. `maybe_stream_switch` on the workload's state: it must choose the
+     stream layout;
+ 17. the cell kernel against its plain version on synthetic cells (a cell
+     with no candidate, candidates that cover no tile of the cell, hard
+     cutoffs on and off), <= 3e-5;
+ 18. the cell-list render option: frames 0-9 of the bench workload through
+     langsplat4d_torch.render.pipeline.render at 16-px tiles and 8x8-tile
+     cells, counting the cell kernel's launches; frame 0 against the stream
+     kernel's image (rgb and language 3e-5, depth 3e-4) and, composited
+     again from its rows, against the plain version on the whole frame.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -60,6 +84,14 @@ KERNELS = {
     "composite_tiles_backward": (
         "langsplat4d_torch/csrc/composite_tiles_backward.cu",
         "langsplat4d/ops/tile_composite.py:267"),
+    "composite_stream_chunks": (
+        "langsplat4d_torch/csrc/composite_stream_chunks.cu",
+        "langsplat4d/ops/tile_composite.py:679"),
+    "composite_stream_chunks_backward": (
+        "langsplat4d_torch/csrc/composite_stream_chunks_backward.cu",
+        "langsplat4d/ops/tile_composite.py:787"),
+    "composite_cells": ("langsplat4d_torch/csrc/composite_cells.cu",
+                        "langsplat4d/ops/tile_composite.py:956"),
 }
 # Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and float32
 # operations/s outside the tensor cores (the compositors are float32 vector
@@ -92,10 +124,14 @@ def backward_ops(evaluated, live, c):
 
 def bound(n_bytes, n_ops):
     """The least time in ms the card could take: the larger of the bytes
-    over the memory rate and the operations over the float32 rate."""
+    over the memory rate and the operations over the float32 rate. ->
+    (ms, "bytes" or "operations", both times as text)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    parts = (f"{n_bytes / 1e6:.1f} MB in {t_bytes:.4f} ms, "
+             f"{n_ops / 1e9:.3f} G operations in {t_ops:.4f} ms")
+    return ((t_bytes, "bytes", parts) if t_bytes >= t_ops
+            else (t_ops, "operations", parts))
 
 # Config().runtime.render_tile_size of the JAX package's config, restated
 # because this script imports nothing of that package
@@ -205,6 +241,7 @@ def case_counts(tiles, k_cap, generator):
     return counts
 
 
+TURN_ROUNDS = 5     # rounds of (lists, stream, stream, lists) in phase 15
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)   # the repo's gradient bound
                                         # (tests/test_pallas_composite.py)
 
@@ -227,13 +264,13 @@ def scaled_errors(got, want):
             grad_excess(got / scale, want / scale))
 
 
-def hold_columns(tag, got, want):
+def hold_columns(tag, got, want, phase=9):
     """Hold every column (last axis) of a gradient to GRAD_TOL relative to
-    that column's own largest entry, print the columns' errors, and raise on
-    the first that is beyond the bound."""
+    that column's own largest entry, print the columns' errors (as phase
+    `phase`), and raise on the first that is beyond the bound."""
     res = [scaled_errors(got[..., j], want[..., j])
            for j in range(want.shape[-1])]
-    print(f"[9] {tag} per column, max abs err / column max "
+    print(f"[{phase}] {tag} per column, max abs err / column max "
           f"(column max): " + ", ".join(
               f"{j}: {e:.3g} ({float(want[..., j].abs().max()):.3g})"
               for j, (e, _) in enumerate(res)), flush=True)
@@ -270,6 +307,118 @@ def compare_list_case(hard, pw, device, seed=0, tiles=(7, 5), k_cap=80):
                              f"{tuple(d_rows.shape)}")
     return (float((out - ref).abs().max()),
             float((d_rows - d_ref).abs().max()), grad_excess(d_rows, d_ref))
+
+
+def segment_cases():
+    """(hard_cutoffs, pw) cases of phase 12."""
+    return [(True, 16), (False, 16), (True, 24), (True, 32)]
+
+
+def compare_segment_case(hard, pw, device, seed=0, tiles=(7, 5)):
+    """The stream-layout training kernels and their plain versions on one
+    synthetic case: ragged segments, some empty, one of one row, two of more
+    than 1000 rows (`case_segments`) -> (forward max abs error, backward max
+    abs error, backward excess over the gradient bound). The bound is taken
+    column by column relative to the column's largest entry
+    (`scaled_errors`): with a cotangent of unit normals the conic columns
+    reach several hundred, and in a few of these ~8000 rows they cancel to
+    1e-4 of that, where float32 rounding of the sums over a tile's pixels
+    (~1e-6 of the column's scale, 5e-4 absolute) is beyond an elementwise
+    atol of 2e-4. A column that is zero in the plain version must be zero."""
+    from langsplat4d_torch.ops import composite as C
+    g = torch.Generator().manual_seed(seed)
+    tx, ty = tiles
+    seg = case_segments(tx * ty, g)
+    seg[3] = 1
+    rows, starts = synthetic_stream(tx, ty, 16, seg, g, pw=pw)
+    g_out = torch.randn(tx * ty, pw - 7, 256, generator=g)
+    rows, starts, g_out = (t.to(device) for t in (rows, starts, g_out))
+    bg = torch.tensor([0.2, 0.5, 0.8], device=device)
+    kw = dict(tiles_x=tx, tile_size=16, hard_cutoffs=hard)
+    out = C.composite_stream_chunks(rows, starts, bg, **kw)
+    ref = C.composite_stream_chunks_plain(rows, starts, bg, **kw)
+    total = (ref * g_out).sum(1)
+    d_rows = C.composite_stream_chunks_backward(rows, starts, g_out, total,
+                                                **kw)
+    d_ref = C.composite_stream_chunks_backward_plain(rows, starts, g_out,
+                                                     total, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for t in (out, d_rows):
+        if not torch.isfinite(t).all():
+            raise AssertionError("non-finite kernel output")
+    if out.shape != (tx * ty, pw - 7, 256) or d_rows.shape != rows.shape:
+        raise AssertionError(f"bad shapes {tuple(out.shape)} "
+                             f"{tuple(d_rows.shape)}")
+    return (float((out - ref).abs().max()),
+            float((d_rows - d_ref).abs().max()),
+            max(scaled_errors(d_rows[:, j], d_ref[:, j])[1]
+                for j in range(pw)))
+
+
+def synthetic_cells(cells_x, cells_y, cell, per_tile, generator, pw=16):
+    """Depth-ordered candidate rows per cell on the CPU, from
+    `synthetic_stream`'s Gaussians (`per_tile` around every tile of the
+    grid, in depth order): each gets a tile rect of random reach around its
+    centre and is a candidate of every cell the rect touches. Besides, every
+    cell gets some candidates whose rect covers none of its tiles, and cell 1
+    gets no candidate at all. Returns (rows [M, pw] f32 with the rect in
+    columns 6 and 7, cell_starts [n_cells + 1] int32)."""
+    tiles_x, tiles_y = cells_x * cell, cells_y * cell
+    table, _ = synthetic_stream(tiles_x, tiles_y, 16,
+                                [per_tile] * (tiles_x * tiles_y), generator,
+                                pw=pw)
+    m = table.shape[0]
+    table = table[torch.randperm(m, generator=generator)]
+    table[:, pw - 2] = torch.sort(table[:, pw - 2]).values   # depth order
+    reach = torch.rand(m, 2, generator=generator) * 40.0 + 4.0
+    lo = torch.clamp(torch.floor((table[:, :2] - reach) / 16.0), min=0)
+    hi = torch.clamp(torch.floor((table[:, :2] + reach) / 16.0) + 1, min=0)
+    hi = torch.minimum(hi, torch.tensor([tiles_x, tiles_y]).float())
+    lo = torch.minimum(lo, hi)
+    table[:, 6] = lo[:, 0] + 256.0 * lo[:, 1]
+    table[:, 7] = hi[:, 0] + 256.0 * hi[:, 1]
+    picks, lens = [], []
+    for ci in range(cells_x * cells_y):
+        x0, y0 = (ci % cells_x) * cell, (ci // cells_x) * cell
+        touches = ((lo[:, 0] < x0 + cell) & (hi[:, 0] > x0)
+                   & (lo[:, 1] < y0 + cell) & (hi[:, 1] > y0))
+        strangers = torch.zeros(m, dtype=torch.bool)
+        strangers[torch.randperm(m, generator=generator)[:m // 20]] = True
+        cand = (touches | strangers) if ci != 1 else torch.zeros_like(touches)
+        picks.append(cand.nonzero()[:, 0])
+        lens.append(len(picks[-1]))
+    starts = torch.zeros(len(lens) + 1, dtype=torch.int32)
+    starts[1:] = torch.cumsum(torch.tensor(lens), 0).to(torch.int32)
+    return table[torch.cat(picks)], starts
+
+
+def cell_cases():
+    """(hard_cutoffs, pw) cases of phase 17."""
+    return [(True, 16), (False, 16), (True, 24)]
+
+
+def compare_cell_case(hard, pw, device, seed=0, cells=(3, 2), cell=4):
+    """The cell kernel and its plain version on one synthetic case -> max
+    abs error."""
+    from langsplat4d_torch.ops import composite as C
+    g = torch.Generator().manual_seed(seed)
+    rows, starts = synthetic_cells(cells[0], cells[1], cell, 30, g, pw=pw)
+    if int(starts[2] - starts[1]) != 0 or int(starts[1]) < 300:
+        raise AssertionError(f"bad synthetic cells {starts.tolist()}")
+    rows, starts = rows.to(device), starts.to(device)
+    bg = torch.tensor([0.2, 0.5, 0.8], device=device)
+    kw = dict(cells_x=cells[0], cell=cell, tile_size=16, hard_cutoffs=hard)
+    out = C.composite_cells(rows, starts, bg, **kw)
+    ref = C.composite_cells_plain(rows, starts, bg, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if (out.shape != (cells[0] * cells[1], cell * cell, pw - 7, 256)
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"bad kernel output {tuple(out.shape)}")
+    if not float(ref[:, :, pw - 8].max()) > 0.5:
+        raise AssertionError("the synthetic cells cover nothing")
+    return float((out - ref).abs().max())
 
 
 def bench_workload(device, frames=60, n=200_000, hw=(1014, 1352)):
@@ -309,13 +458,20 @@ OPTIM = types.SimpleNamespace(
     scaling_lr=0.005, rotation_lr=0.001, language_feature_lr=0.0025)
 
 
+def train_camera(hw=(536, 960)):
+    """The training-step workload's camera."""
+    from langsplat4d_torch.data.cameras import HostCamera
+    return HostCamera(R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=1.0,
+                      fovy=0.8, width=hw[1], height=hw[0])
+
+
 def train_workload(device, n=100_000, hw=(536, 960), tile_capacity=512,
-                   net_width=128):
+                   net_width=128, stream=False):
     """The training-step workload (bench.py:293-419): realistic Gaussians,
     the Neu3D-preset deformation, one camera at T = (0, 0, 4), time 0.3,
     16-px tiles, fine-lang, batch 1, random ground truth from a seed, a mask
-    of ones, black background. -> (state, step config, batch, bg)."""
-    from langsplat4d_torch.data.cameras import HostCamera
+    of ones, black background; `stream` trains on the stream layout instead
+    of the tile lists. -> (state, step config, batch, bg)."""
     from langsplat4d_torch.field.deformation import (DeformConfig,
                                                      DeformNetwork)
     from langsplat4d_torch.render.raster import CameraParams, RasterSettings
@@ -334,8 +490,7 @@ def train_workload(device, n=100_000, hw=(536, 960), tile_capacity=512,
     net = DeformNetwork(dcfg, torch.Generator().manual_seed(1)).to(device)
     aabb = torch.tensor([[1.6] * 3, [-1.6] * 3], device=device)
     state = make_train_state(gs, net, aabb, active_sh_degree=3)
-    cam = HostCamera(R=np.eye(3), T=np.array([0.0, 0.0, 4.0]), fovx=1.0,
-                     fovy=0.8, width=W, height=H).camera_params(device)
+    cam = train_camera(hw).camera_params(device)
 
     def up(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
@@ -347,7 +502,8 @@ def train_workload(device, n=100_000, hw=(536, 960), tile_capacity=512,
         lang_mask=torch.ones((1, 1, H, W), device=device))
     settings = RasterSettings(image_height=H, image_width=W, sh_degree=3,
                               include_feature=True, analytic_vjp=True,
-                              tile_capacity=tile_capacity)
+                              tile_capacity=tile_capacity,
+                              stream_train=stream)
     cfg = StepConfig(settings=settings, dcfg=dcfg,
                      lr_cfg=LRConfig.from_optim(OPTIM, 1.0),
                      stage="fine-lang", no_dlang=False)
@@ -379,11 +535,13 @@ class Marks:
 def staged_step(cfg, state, batch, bg, plain=False, update=False):
     """One training step of the workload, stage by stage, with the
     compositor's pieces called directly instead of through autograd (the
-    same calls `CompositeCV` makes), so that each stage can be timed and
-    the kernels' inputs and outputs kept. `plain` runs the kernels' plain
-    versions instead; `update` applies Adam. Returns a dict with the loss,
-    the rows, counts, g_out and total the kernels saw, the gradient of the
-    packed rows, the leaves' gradients and the stage times."""
+    same calls `CompositeCV` or, with `stream_train`, `StreamCV` makes), so
+    that each stage can be timed and the kernels' inputs and outputs kept.
+    `plain` runs the kernels' plain versions instead; `update` applies
+    Adam. Returns a dict with the loss, the rows, their bounds (the lists'
+    counts or the stream's starts), g_out and total the kernels saw, the
+    gradient of the packed rows, the leaves' gradients and the stage
+    times."""
     from langsplat4d_torch.ops import composite as C
     from langsplat4d_torch.render.composite_vjp import (drop_padding,
                                                         kernel_rows,
@@ -393,10 +551,16 @@ def staged_step(cfg, state, batch, bg, plain=False, update=False):
     from langsplat4d_torch.render.raster import (CameraParams, bin_tiles,
                                                  pack_differentiable,
                                                  preprocess, tiles_to_image)
+    from langsplat4d_torch.render.stream import build_stream_train
+    from langsplat4d_torch.render.stream_vjp import stream_rows
     from langsplat4d_torch.train import losses
     from langsplat4d_torch.train.optim import (adam_update, group_lrs,
                                                group_of_leaf, trainable_tree)
     settings = cfg.settings
+    stream = settings.stream_train
+    names = (("composite_stream_chunks", "composite_stream_chunks_backward")
+             if stream else ("composite_tiles", "composite_tiles_backward"))
+    fwd, bwd = (getattr(C, n + ("_plain" if plain else "")) for n in names)
     kw = dict(tiles_x=settings.tiles_x, tile_size=settings.tile_size,
               hard_cutoffs=settings.hard_cutoffs)
     leaves = state.leaves()
@@ -417,15 +581,24 @@ def staged_step(cfg, state, batch, bg, plain=False, update=False):
                            state.deform, state.aabb)
     prep = preprocess(settings, cam, a[0], a[3], a[1], a[2], a[4], None,
                       active=gs.active_mask(), means2d_dummy=dummy)
-    m.mark("lists")
-    entries, valid = bin_tiles(settings, prep)
-    m.mark("pack")
+    valid = None
+    if stream:
+        m.mark("build")
+        index, bounds = build_stream_train(settings, prep,
+                                           settings.stream_ellipse_cull)
+        m.mark("gather")
+    else:
+        m.mark("lists")
+        index, valid = bin_tiles(settings, prep)
+        m.mark("pack")
     packed = pack_differentiable(prep, a[5])
     with torch.no_grad():
-        rows, counts = kernel_rows(packed, entries, valid)
+        if stream:
+            rows = stream_rows(packed, index)
+        else:
+            rows, bounds = kernel_rows(packed, index, valid)
         m.mark("forward kernel")
-        fwd = C.composite_tiles_plain if plain else C.composite_tiles
-        accum = fwd(rows, counts, bg, **kw)
+        accum = fwd(rows, bounds, bg, **kw)
     m.mark("loss")
     out = drop_padding(accum, packed.shape[1] - 6).detach().clone(
         ).requires_grad_(True)
@@ -437,11 +610,9 @@ def staged_step(cfg, state, batch, bg, plain=False, update=False):
         g_full = pad_cotangent(g_out, accum.shape[1] - 1)
         total = torch.sum(accum * g_full, dim=1)
         m.mark("backward kernel")
-        bwd = (C.composite_tiles_backward_plain if plain
-               else C.composite_tiles_backward)
-        d_rows = bwd(rows, counts, g_full, total, **kw)
+        d_rows = bwd(rows, bounds, g_full, total, **kw)
         m.mark("scatter-add")
-        d_packed = scatter_rows(d_rows, entries, packed)
+        d_packed = scatter_rows(d_rows, index, packed)
     m.mark("rest of backward")
     inputs = [dummy] + [gs.language_feature if n == "language_feature"
                         else leaves[n] for n in wrt]
@@ -456,17 +627,17 @@ def staged_step(cfg, state, batch, bg, plain=False, update=False):
     m.mark()
     if m.on:
         torch.cuda.synchronize()
-    return dict(loss=loss.detach(), rows=rows, counts=counts, g_out=g_full,
+    return dict(loss=loss.detach(), rows=rows, bounds=bounds, g_out=g_full,
                 total=total, accum=accum, d_rows=d_rows, d_packed=d_packed,
-                grads=grads, vs_grad=got[0], valid=valid, entries=entries,
+                grads=grads, vs_grad=got[0], valid=valid, index=index,
                 ms=m.ms() if m.on else {})
 
 
-def profile_steps(cfg, state, batch, bg, ms_step, steps=5):
-    """Phase 11: torch.profiler over a few training steps: device kernels
-    per step, their summed time against the unprofiled step time `ms_step`
-    (the device's busy share), and the kernels that take most of it. Fails
-    if the profiler records no device time."""
+def profile_steps(cfg, state, batch, bg, ms_step, steps=5, phase=11):
+    """Phase 11 (and part of 15): torch.profiler over a few training steps:
+    device kernels per step, their summed time against the unprofiled step
+    time `ms_step` (the device's busy share), and the kernels that take most
+    of it. Fails if the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     from langsplat4d_torch.train.step import train_step
     with profile(activities=[ProfilerActivity.CPU,
@@ -484,57 +655,80 @@ def profile_steps(cfg, state, batch, bg, ms_step, steps=5):
     if not busy > 0:
         raise AssertionError("torch.profiler recorded no device time")
     rows.sort(reverse=True)
-    print(f"[11] torch.profiler over {steps} steps: "
+    print(f"[{phase}] torch.profiler over {steps} steps: "
           f"{sum(r[1] for r in rows):.0f} device kernels per step, kernel "
           f"time {busy:.3f} ms per step against {ms_step:.3f} ms unprofiled: "
           f"device busy {busy / ms_step:.1%}", flush=True)
     for ms, n, key in rows[:8]:
-        print(f"[11]   {ms:.3f} ms/step x{n:.0f}  {key[:90]}", flush=True)
+        print(f"[{phase}]   {ms:.3f} ms/step x{n:.0f}  {key[:90]}",
+              flush=True)
 
 
-def train_phases(dev, steps=20, **workload_kw):
-    """Phases 8 to 10 on `dev` (a CPU device rehearses them at a small size
-    with the plain versions and times nothing). Returns the kernels' JSON
-    entries for composite_tiles and composite_tiles_backward."""
-    from langsplat4d_torch.ops import composite as C
+def spread(x):
+    """The median, least and largest of some timings, as text."""
+    return f"median {np.median(x):.3f} (min {min(x):.3f}, max {max(x):.3f})"
+
+
+def timed_steps(cfg, state, batch, bg, steps, first_iteration):
+    """`steps` train_step calls -> (ms/step by CUDA events with the device
+    synchronised inside the window, ms/step on the host clock, the losses,
+    the last step's outputs). Off the GPU the event time is nan."""
     from langsplat4d_torch.train.step import train_step
-    on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    # 8. the main path
-    state, cfg, batch, bg = train_workload(dev, **workload_kw)
-    before = {n: p.detach().clone() for n, p in state.leaves().items()}
+    on_card = state.device.type == "cuda"
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    C.composite_tiles.launches = C.composite_tiles_backward.launches = 0
-    state, metrics, vs_grad, vis, radii = train_step(cfg, state, batch, bg,
-                                                     1, 3)      # warm-up
-    first_loss = float(metrics["loss"])
-    sync()
-    if on_card:
+        torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
     t0 = time.perf_counter()
     step_losses = []
     for i in range(steps):
-        state, metrics, vs_grad, vis, radii = train_step(cfg, state, batch,
-                                                         bg, i + 2, 3)
-        step_losses.append(metrics["loss"])
+        out = train_step(cfg, state, batch, bg, first_iteration + i, 3)
+        step_losses.append(out[1]["loss"])
     if on_card:
         e1.record()
-    sync()
+        torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / steps * 1e3
     ms_step = e0.elapsed_time(e1) / steps if on_card else float("nan")
-    launches = (C.composite_tiles.launches,
-                C.composite_tiles_backward.launches)
-    step_losses = [first_loss] + [float(x) for x in step_losses]
+    return ms_step, host_ms, [float(x) for x in step_losses], out
+
+
+def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
+    """Phases 8 to 11 on `dev`, or with `stream` phases 13 to 15, the same
+    on the stream layout (a CPU device rehearses them at a small size with
+    the plain versions and times nothing). `list_ms` is phase 8's step time,
+    printed beside the stream step's. Returns (the kernels' JSON entries for
+    the layout's forward and backward kernel, ms per step). The profiles
+    (phase 11, and phase 15's) are taken by the caller after every timing of
+    the run, so that no timing is taken with the profiler attached."""
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render.composite_vjp import scatter_rows
+    from langsplat4d_torch.train.step import train_step
+    on_card = dev.type == "cuda"
+    p_run, p_cmp, p_time = (13, 14, 15) if stream else (8, 9, 10)
+    names = (("composite_stream_chunks", "composite_stream_chunks_backward")
+             if stream else ("composite_tiles", "composite_tiles_backward"))
+    fwd, bwd = (getattr(C, n) for n in names)
+    fwd_plain, bwd_plain = (getattr(C, n + "_plain") for n in names)
+
+    # 8 / 13. the main path
+    state, cfg, batch, bg = train_workload(dev, stream=stream, **workload_kw)
+    before = {n: p.detach().clone() for n, p in state.leaves().items()}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    fwd.launches = bwd.launches = 0
+    state, metrics, vs_grad, vis, radii = train_step(cfg, state, batch, bg,
+                                                     1, 3)      # warm-up
+    first_loss = float(metrics["loss"])
+    ms_step, host_ms, step_losses, out = timed_steps(cfg, state, batch, bg,
+                                                     steps, 2)
+    _, _, vs_grad, vis, radii = out
+    launches = (fwd.launches, bwd.launches)
+    step_losses = [first_loss] + step_losses
     peak = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else 0.0
-    print(f"[8] train_step x{steps} after 1 warm-up: {ms_step:.3f} ms/step "
-          f"(CUDA events), {1e3 / ms_step:.3f} it/s; host clock "
+    print(f"[{p_run}] train_step x{steps} after 1 warm-up"
+          f"{' on the stream layout' if stream else ''}: {ms_step:.3f} "
+          f"ms/step (CUDA events), {1e3 / ms_step:.3f} it/s; host clock "
           f"{host_ms:.3f} ms/step; peak memory {peak:.1f} MiB; loss "
           f"{step_losses[0]:.6f} -> {step_losses[-1]:.6f}; visible "
           f"{int(vis.sum())}; launches forward {launches[0]}, backward "
@@ -561,25 +755,40 @@ def train_phases(dev, steps=20, **workload_kw):
                              f"expected {sorted(want)}")
     del before
 
-    # 9. step 1 again from the same seed, stage by stage: kernels vs plain
-    state, cfg, batch, bg = train_workload(dev, **workload_kw)
+    # 9 / 14. step 1 again from the same seed, stage by stage: kernels vs
+    # plain
+    state, cfg, batch, bg = train_workload(dev, stream=stream, **workload_kw)
     ker = staged_step(cfg, state, batch, bg, plain=False)
     ref = staged_step(cfg, state, batch, bg, plain=True)
-    n_valid = int(ker["counts"].sum())
-    full = float((ker["counts"] == cfg.settings.tile_capacity).float().mean())
-    print(f"[9] step 1: valid list entries {n_valid}, tiles with a full "
-          f"list {full:.4f}", flush=True)
+    if stream:
+        n_valid = ker["rows"].shape[0]
+        seg = ker["bounds"][1:] - ker["bounds"][:-1]
+        over = seg > cfg.settings.tile_capacity
+        print(f"[{p_cmp}] step 1: stream of {n_valid} slots in "
+              f"{seg.numel()} segments, longest {int(seg.max())}, empty "
+              f"{int((seg == 0).sum())}; {int(over.sum())} segments are "
+              f"longer than the lists' capacity "
+              f"{cfg.settings.tile_capacity} and hold "
+              f"{int(seg[over].sum())} slots, "
+              f"{int((seg[over] - cfg.settings.tile_capacity).sum())} of "
+              f"them beyond that capacity", flush=True)
+    else:
+        n_valid = int(ker["bounds"].sum())
+        full = float((ker["bounds"] == cfg.settings.tile_capacity
+                      ).float().mean())
+        print(f"[{p_cmp}] step 1: valid list entries {n_valid}, tiles with "
+              f"a full list {full:.4f}", flush=True)
     for n, g in ker["grads"].items():
         if g is None or not torch.isfinite(g).all():
             raise AssertionError(f"gradient of {n} missing or not finite")
     rel = abs(float(ker["loss"]) - first_loss) / first_loss
     fwd_err = float((ker["accum"] - ref["accum"]).abs().max())
     d_err = float((ker["d_packed"] - ref["d_packed"]).abs().max())
-    print(f"[9] staged loss vs train_step's: rel diff {rel:.3g}; kernels vs "
-          f"plain: loss {float(ker['loss']):.8f} vs {float(ref['loss']):.8f}, "
-          f"accum max abs err {fwd_err:.3g}, d_packed max abs err "
-          f"{d_err:.3g} of max {float(ref['d_packed'].abs().max()):.3g}",
-          flush=True)
+    print(f"[{p_cmp}] staged loss vs train_step's: rel diff {rel:.3g}; "
+          f"kernels vs plain: loss {float(ker['loss']):.8f} vs "
+          f"{float(ref['loss']):.8f}, accum max abs err {fwd_err:.3g}, "
+          f"d_packed max abs err {d_err:.3g} of max "
+          f"{float(ref['d_packed'].abs().max()):.3g}", flush=True)
     if rel > 1e-6:
         raise AssertionError("the staged step is not train_step's step")
     if fwd_err > TOL or abs(float(ker["loss"] - ref["loss"])) > 1e-7:
@@ -589,13 +798,13 @@ def train_phases(dev, steps=20, **workload_kw):
     # which alone reach the trained leaves in fine-lang, are the smallest):
     # each column is held to the gradient bound relative to its own largest
     # entry, and so is each trained leaf
-    hold_columns("d_rows", ker["d_rows"], ref["d_rows"])
-    hold_columns("d_packed", ker["d_packed"], ref["d_packed"])
+    hold_columns("d_rows", ker["d_rows"], ref["d_rows"], p_cmp)
+    hold_columns("d_packed", ker["d_packed"], ref["d_packed"], p_cmp)
     for n in ["vs_grad"] + sorted(ref["grads"]):
         got, want = ((ker[n], ref[n]) if n == "vs_grad"
                      else (ker["grads"][n], ref["grads"][n]))
         e, x = scaled_errors(got, want)
-        print(f"[9] {n}: max abs err / leaf max {e:.3g} (leaf max "
+        print(f"[{p_cmp}] {n}: max abs err / leaf max {e:.3g} (leaf max "
               f"{float(want.abs().max()):.3g})", flush=True)
         if float(want.abs().max()) == 0.0:
             raise AssertionError(f"the gradient of {n} is zero")
@@ -603,9 +812,9 @@ def train_phases(dev, steps=20, **workload_kw):
             raise AssertionError(f"gradient of {n} beyond the gradient "
                                  f"bound: scaled error {e}, excess {x}")
     if not on_card:
-        return []
+        return [], ms_step
 
-    # 10. per-stage times, kernel and plain times
+    # 10 / 15. per-stage times, kernel and plain times
     n_stage = 10
     tot = {}
     for i in range(n_stage + 1):
@@ -613,61 +822,100 @@ def train_phases(dev, steps=20, **workload_kw):
         if i:                                        # pass 0 warms up
             for k, v in ms.items():
                 tot[k] = tot.get(k, 0.0) + v / n_stage
-    print(f"[10] per-stage ms of a step (CUDA events, mean of {n_stage}): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in tot.items())
+    print(f"[{p_time}] per-stage ms of a step (CUDA events, mean of "
+          f"{n_stage}): " + ", ".join(f"{k} {v:.3f}" for k, v in tot.items())
           + f"; sum {sum(tot.values()):.3f}", flush=True)
 
     kw = dict(tiles_x=cfg.settings.tiles_x, tile_size=16, hard_cutoffs=True)
-    rows, counts, g_out, total = (ker[k] for k in
-                                  ("rows", "counts", "g_out", "total"))
+    rows, bounds, g_out, total = (ker[k] for k in
+                                  ("rows", "bounds", "g_out", "total"))
     stats = {}
-    C.composite_tiles_plain(rows, counts, bg, stats=stats, **kw)
+    fwd_plain(rows, bounds, bg, stats=stats, **kw)
     pairs, live = stats["pair_pixels"], stats["live_pair_pixels"]
-    t_n, k_cap, pw = rows.shape
+    t_n, pw = ker["accum"].shape[0], rows.shape[-1]
     c = ker["d_packed"].shape[1] - 6      # the real channels, padding apart
+    # each input read once, each output written once: the valid rows (the
+    # lists' padding is never needed), their bounds, bg, accum; the backward
+    # reads g_out and total besides and writes all of d_rows
     valid_row_bytes = n_valid * pw * 4
     out_bytes = t_n * (pw - 7) * 256 * 4
-    f_bound = bound(valid_row_bytes + t_n * 4 + 12 + out_bytes,
+    f_bound = bound(valid_row_bytes + bounds.numel() * 4 + 12 + out_bytes,
                     forward_ops(pairs, live, c))
-    b_bound = bound(valid_row_bytes + t_n * 4 + out_bytes + t_n * 256 * 4
-                    + rows.numel() * 4, backward_ops(pairs, live, c))
-    f_ms = time_ms(lambda: C.composite_tiles(rows, counts, bg, **kw), 20)
-    fp_ms = time_ms(lambda: C.composite_tiles_plain(rows, counts, bg, **kw),
-                    1)
-    b_ms = time_ms(lambda: C.composite_tiles_backward(
-        rows, counts, g_out, total, **kw), 20)
-    bp_ms = time_ms(lambda: C.composite_tiles_backward_plain(
-        rows, counts, g_out, total, **kw), 1)
-    print(f"[10] step 1 rows [{t_n}, {k_cap}, {pw}], {pairs} evaluated "
-          f"pair-pixels of which {live} live, {c} channels: forward kernel {f_ms:.3f} ms (bound "
-          f"{f_bound[0]:.4f} by {f_bound[1]}), plain {fp_ms:.1f} ms; "
-          f"backward kernel {b_ms:.3f} ms (bound {b_bound[0]:.4f} by "
-          f"{b_bound[1]}), plain {bp_ms:.1f} ms", flush=True)
-    # the scatter-add of the gradient rows, with the lists' invalid slots
-    # as bin_tiles fills them and all aimed at Gaussian 0
-    from langsplat4d_torch.render.composite_vjp import scatter_rows
+    b_bound = bound(valid_row_bytes + bounds.numel() * 4 + out_bytes
+                    + t_n * 256 * 4 + rows.numel() * 4,
+                    backward_ops(pairs, live, c))
+    f_ms = time_ms(lambda: fwd(rows, bounds, bg, **kw), 20)
+    fp_ms = time_ms(lambda: fwd_plain(rows, bounds, bg, **kw), 1)
+    b_ms = time_ms(lambda: bwd(rows, bounds, g_out, total, **kw), 20)
+    bp_ms = time_ms(lambda: bwd_plain(rows, bounds, g_out, total, **kw), 1)
+    print(f"[{p_time}] step 1 rows {list(rows.shape)}, {pairs} evaluated "
+          f"pair-pixels of which {live} live, {c} channels: forward kernel "
+          f"{f_ms:.3f} ms (bound {f_bound[0]:.4f} by {f_bound[1]}: "
+          f"{f_bound[2]}), plain {fp_ms:.1f} ms; backward kernel "
+          f"{b_ms:.3f} ms (bound {b_bound[0]:.4f} by {b_bound[1]}: "
+          f"{b_bound[2]}), plain {bp_ms:.1f} ms", flush=True)
+    if stream:
+        # the longest segment alone, every other tile empty: one block's
+        # walk, which the whole launch cannot finish before
+        seg = bounds[1:] - bounds[:-1]
+        t = int(seg.argmax())
+        lo, hi = int(bounds[t]), int(bounds[t + 1])
+        alone = torch.zeros_like(bounds)
+        alone[t + 1:] = hi - lo
+        rows_t = rows[lo:hi].contiguous()
+        f1_ms = time_ms(lambda: fwd(rows_t, alone, bg, **kw), 20)
+        b1_ms = time_ms(lambda: bwd(rows_t, alone, g_out, total, **kw), 20)
+        print(f"[{p_time}] the longest segment alone ({hi - lo} slots, "
+              f"tile {t}): forward kernel {f1_ms:.3f} ms, backward kernel "
+              f"{b1_ms:.3f} ms", flush=True)
     packed0 = torch.zeros_like(ker["d_packed"])
-    at_zero = torch.where(ker["valid"], ker["entries"], 0)
-    sc = [time_ms(lambda: scatter_rows(ker["d_rows"], e, packed0), 20)
-          for e in (ker["entries"], at_zero)]
-    print(f"[10] scatter-add of {ker['d_rows'].shape[0] * k_cap} gradient "
-          f"rows: {sc[0]:.3f} ms; with every invalid slot at index 0 "
-          f"{sc[1]:.3f} ms", flush=True)
+    sc_ms = time_ms(lambda: scatter_rows(ker["d_rows"], ker["index"],
+                                         packed0), 20)
+    if stream:
+        print(f"[{p_time}] scatter-add of {ker['index'].numel()} gradient "
+              f"rows, none of them padding: {sc_ms:.3f} ms", flush=True)
+    else:
+        # with the lists' invalid slots as bin_tiles fills them, and with
+        # all of them aimed at Gaussian 0
+        at_zero = torch.where(ker["valid"], ker["index"], 0)
+        z_ms = time_ms(lambda: scatter_rows(ker["d_rows"], at_zero, packed0),
+                       20)
+        print(f"[{p_time}] scatter-add of {ker['index'].numel()} gradient "
+              f"rows: {sc_ms:.3f} ms; with every invalid slot at index 0 "
+              f"{z_ms:.3f} ms", flush=True)
     per_step = [x / (steps + 1) for x in launches]
-    print(f"[10] launches per step: forward {per_step[0]:.2f}, backward "
-          f"{per_step[1]:.2f}", flush=True)
-    print(f"[10] kernel / bound: forward {f_ms / f_bound[0]:.2f}, backward "
-          f"{b_ms / b_bound[0]:.2f}", flush=True)
-    profile_steps(cfg, state, batch, bg, ms_step)
+    print(f"[{p_time}] launches per step: forward {per_step[0]:.2f}, "
+          f"backward {per_step[1]:.2f}", flush=True)
+    print(f"[{p_time}] kernel / bound: forward {f_ms / f_bound[0]:.2f}, "
+          f"backward {b_ms / b_bound[0]:.2f}", flush=True)
+    if stream:
+        # both layouts in turns on this state and card: rounds of lists,
+        # stream, stream, lists; a window of 10 steps after one warm-up
+        lists = cfg._replace(settings=dataclasses.replace(
+            cfg.settings, stream_train=False))
+        turns = {False: [], True: []}
+        it = 200
+        for _ in range(TURN_ROUNDS):
+            for on in (False, True, True, False):
+                cf = cfg if on else lists
+                train_step(cf, state, batch, bg, it, 3)         # warm-up
+                turns[on].append(timed_steps(cf, state, batch, bg, 10,
+                                             it + 1)[0])
+                it += 11
+        print(f"[{p_time}] ms/step in turns on one state, "
+              f"{2 * TURN_ROUNDS} windows of 10 steps for each layout: lists "
+              f"{spread(turns[False])}, stream {spread(turns[True])}; phase "
+              f"8 read {list_ms:.3f} for the lists and phase 13 "
+              f"{ms_step:.3f} for the stream", flush=True)
     return [
-        dict(name="composite_tiles", launches=launches[0],
-             max_abs_err=fwd_err, ms=f_ms, plain_ms=fp_ms,
-             bound_ms=f_bound[0], bound_by=f_bound[1]),
-        dict(name="composite_tiles_backward", launches=launches[1],
+        dict(name=names[0], launches=launches[0], max_abs_err=fwd_err,
+             ms=f_ms, plain_ms=fp_ms, bound_ms=f_bound[0],
+             bound_by=f_bound[1]),
+        dict(name=names[1], launches=launches[1],
              max_abs_err=float((ker["d_rows"] - ref["d_rows"]).abs().max()),
              ms=b_ms, plain_ms=bp_ms, bound_ms=b_bound[0],
              bound_by=b_bound[1]),
-    ]
+    ], ms_step
 
 
 def frame_stream(settings, dcfg, gs, net, aabb, view, grid_spatial, events):
@@ -705,6 +953,139 @@ def frame_stream(settings, dcfg, gs, net, aabb, view, grid_spatial, events):
     return rows, starts, bg, img, keys.numel()
 
 
+def cell_phases(dev, frames=10, **workload_kw):
+    """Phase 18 on `dev` (a CPU device rehearses it at a small size with the
+    plain version and times nothing): the first `frames` views of the bench
+    workload through `pipeline.render` with the cell-list option, frame 0
+    against the stream kernel's image and against the plain version.
+    Returns the cell kernel's JSON entry."""
+    from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render.pipeline import prepare_attributes, render
+    from langsplat4d_torch.render.raster import RasterSettings, preprocess
+    from langsplat4d_torch.render.stream import bin_cells, pack_cell_rows
+    on_card = dev.type == "cuda"
+    gs, dcfg, net, aabb, views = bench_workload(dev, frames=60,
+                                                **workload_kw)
+    h, w = views[0].height, views[0].width
+    stream_st = RasterSettings(image_height=h, image_width=w, sh_degree=3)
+    cells_st = dataclasses.replace(stream_st, cell_composite=True)
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        grid_spatial = make_grid_spatial_cache(net, dcfg, aabb, gs.xyz)
+
+        def frame(settings, view):
+            return render(settings, dcfg, "fine-lang",
+                          view.camera_params(dev), view.time, gs, net, aabb,
+                          bg, grid_spatial=grid_spatial)
+
+        def render_frames(settings):
+            """-> (the frames' outputs, ms/frame by CUDA events)."""
+            if not on_card:
+                return ([frame(settings, v) for v in views[:frames]],
+                        float("nan"))
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            outs = [frame(settings, v) for v in views[:frames]]
+            e1.record()
+            torch.cuda.synchronize()
+            return outs, e0.elapsed_time(e1) / frames
+
+        frame(cells_st, views[0])                            # warm-ups
+        frame(stream_st, views[0])
+        C.composite_cells.launches = 0
+        outs, first_ms = render_frames(cells_st)
+        launches = C.composite_cells.launches
+        # both paths in turns: rounds of cells, stream, stream, cells, the
+        # first window being the one above
+        turns = {True: [first_ms], False: []}
+        order = (False, False, True) + (True, False, False, True) * (
+            (TURN_ROUNDS if on_card else 1) - 1)
+        for on in order:
+            turns[on].append(render_frames(cells_st if on else stream_st)[1])
+        print(f"[18] pipeline.render x{frames} with the cell option, "
+              f"composite_cells launches {launches}; ms/frame (CUDA events) "
+              f"in turns, {len(turns[True])} windows of {frames} frames "
+              f"each: cell option {spread(turns[True])}, the stream path at "
+              f"16-px tiles {spread(turns[False])}", flush=True)
+        if on_card and launches < frames:
+            raise AssertionError(f"cell kernel launched {launches} times "
+                                 f"for {frames} frames")
+        for o in outs:
+            for key in ("render", "language_feature_image", "depth"):
+                if not torch.isfinite(o[key]).all():
+                    raise AssertionError(f"{key} not finite")
+
+        # frame 0 against the stream kernel's image at 16-px tiles
+        _, _, _, img, _ = frame_stream(stream_st, dcfg, gs, net, aabb,
+                                       views[0], grid_spatial, None)
+        errs = {}
+        for key, ref, tol in (("render", img[:3], TOL),
+                              ("language_feature_image", img[3:6], TOL),
+                              ("depth", img[6:7], 3e-4)):
+            if outs[0][key].shape != ref.shape:
+                raise AssertionError(f"{key}: shape "
+                                     f"{tuple(outs[0][key].shape)}")
+            errs[key] = float((outs[0][key] - ref).abs().max())
+        print("[18] frame 0, cell option vs stream kernel, max abs err: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; covered {float((img[-1] > 0.5).float().mean()):.3f} of "
+              f"the frame", flush=True)
+        if (errs["render"] > TOL or errs["language_feature_image"] > TOL
+                or errs["depth"] > 3e-4):
+            raise AssertionError("the cell option's frame differs from the "
+                                 "stream kernel's")
+
+        # frame 0's rows again: kernel vs plain on the whole frame
+        a = prepare_attributes(dcfg, "fine-lang", views[0].time, gs, net,
+                               aabb, grid_spatial=grid_spatial)
+        prep = preprocess(cells_st, views[0].camera_params(dev), a[0], a[3],
+                          a[1], a[2], a[4], None, active=gs.active_mask())
+        src, cell_starts = bin_cells(cells_st, prep)
+        rows = pack_cell_rows(prep, a[5], src)
+        kw = dict(cells_x=cells_st.cells_x, cell=cells_st.bin_cell_tiles,
+                  tile_size=16, hard_cutoffs=True)
+        out = C.composite_cells(rows, cell_starts, bg, **kw)
+        stats = {}
+        t0 = time.perf_counter()
+        ref = C.composite_cells_plain(rows, cell_starts, bg, stats=stats,
+                                      **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        err = float((out - ref).abs().max())
+        lens = cell_starts[1:] - cell_starts[:-1]
+        print(f"[18] frame 0: {rows.shape[0]} candidates in "
+              f"{lens.numel()} cells, longest list {int(lens.max())}, "
+              f"{stats['rect_tests']} (tile, candidate) pairs; kernel vs "
+              f"plain on the whole frame max abs err {err:.3g}", flush=True)
+        if not err <= TOL:
+            raise AssertionError(f"cell kernel vs plain {err} > {TOL}")
+        if not on_card:
+            return None
+        k_ms = time_ms(lambda: C.composite_cells(rows, cell_starts, bg,
+                                                 **kw), 20)
+    # each input read once, the output written once; the operations are the
+    # blend's over the covered rows (the 4 comparisons of each of the
+    # (tile, candidate) rect tests are left out, so the bound is a little
+    # low)
+    c_bound = bound(rows.numel() * 4 + cell_starts.numel() * 4 + 12
+                    + out.numel() * 4,
+                    forward_ops(stats["pair_pixels"],
+                                stats["live_pair_pixels"],
+                                3 + dcfg.lang_dim + 1))
+    print(f"[18] cell kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; "
+          f"{stats['pair_pixels']} evaluated pair-pixels of which "
+          f"{stats['live_pair_pixels']} live, bound {c_bound[0]:.4f} ms by "
+          f"{c_bound[1]} ({c_bound[2]}): kernel / bound "
+          f"{k_ms / c_bound[0]:.2f}", flush=True)
+    return dict(name="composite_cells", launches=launches, max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=c_bound[0],
+                bound_by=c_bound[1])
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -729,9 +1110,12 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     from langsplat4d_torch.ops import composite
-    from langsplat4d_torch.render.driver import render_set
-    from langsplat4d_torch.render.raster import RasterSettings
     from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+    from langsplat4d_torch.render.driver import render_set
+    from langsplat4d_torch.render.pipeline import binning_report
+    from langsplat4d_torch.render.raster import RasterSettings
+    from langsplat4d_torch.train.loop import maybe_stream_switch
+    from langsplat4d_torch.train.step import train_step
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -846,8 +1230,8 @@ def main():
             print(f"[5] ts={ts}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
                   f"{stats['pair_pixels']} evaluated pair-pixels of which "
                   f"{stats['live_pair_pixels']} live, bound "
-                  f"{s_bound[0]:.4f} ms by {s_bound[1]}: kernel / bound "
-                  f"{k_ms / s_bound[0]:.2f}", flush=True)
+                  f"{s_bound[0]:.4f} ms by {s_bound[1]} ({s_bound[2]}): "
+                  f"kernel / bound {k_ms / s_bound[0]:.2f}", flush=True)
     shutil.rmtree(out_root, ignore_errors=True)
     del gs, net, views, rows, starts, img, ref
     torch.cuda.empty_cache()
@@ -871,13 +1255,64 @@ def main():
             raise AssertionError("backward kernel vs plain beyond the "
                                  "gradient bound")
 
-    # 8-10. the training path
-    entries = train_phases(dev)
+    # 8-11. the training path
+    entries, list_ms = train_phases(dev)
 
     k_ms, p_ms, s_bound = timing[RENDER_TILE_SIZE]
     entries.insert(0, dict(
         name="composite_stream", launches=launches, max_abs_err=max(errs),
         ms=k_ms, plain_ms=p_ms, bound_ms=s_bound[0], bound_by=s_bound[1]))
+
+    # 12. the stream-layout training kernels vs plain on synthetic segments
+    for hard, pw in segment_cases():
+        f_err, b_err, b_excess = compare_segment_case(hard, pw, dev)
+        print(f"[12] hard={hard} pw={pw}: forward max abs err {f_err:.3g}, "
+              f"backward max abs err {b_err:.3g}, excess over rtol "
+              f"{GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']} of each "
+              f"column's largest entry: {b_excess:.3g}", flush=True)
+        if not f_err <= TOL:
+            raise AssertionError(f"forward kernel vs plain {f_err} > {TOL}")
+        if not b_excess <= 0:
+            raise AssertionError("backward kernel vs plain beyond the "
+                                 "gradient bound")
+
+    # 13-15. the training path on the stream layout
+    stream_entries, stream_ms = train_phases(dev, stream=True,
+                                             list_ms=list_ms)
+    entries += stream_entries
+
+    # 16. the loop's switch on the workload's state
+    state, cfg, _, _ = train_workload(dev)
+    sat = binning_report(cfg.settings, train_camera().camera_params(dev),
+                         state.gaussians())
+    switched = maybe_stream_switch(cfg.settings, state, [train_camera()])
+    print(f"[16] undeformed Gaussians: {sat['tile_full_frac']:.4f} of the "
+          f"tile lists full at capacity {cfg.settings.tile_capacity}, "
+          f"longest list {int(sat['tile_max_count'])}; maybe_stream_switch "
+          f"-> stream_train={getattr(switched, 'stream_train', None)}",
+          flush=True)
+    if switched is None or not switched.stream_train:
+        raise AssertionError("maybe_stream_switch did not choose the stream "
+                             "layout")
+    del state, cfg
+    torch.cuda.empty_cache()
+
+    # 17. the cell kernel vs plain on synthetic cells
+    for hard, pw in cell_cases():
+        err = compare_cell_case(hard, pw, dev)
+        print(f"[17] hard={hard} pw={pw}: max abs err {err:.3g}", flush=True)
+        if not err <= TOL:
+            raise AssertionError(f"cell kernel vs plain {err} > {TOL}")
+
+    # 18. the cell-list render option
+    entries.append(cell_phases(dev))
+
+    # 11, and 15's: the profiles of the two training steps
+    for stream, ms_step, phase in ((False, list_ms, 11),
+                                   (True, stream_ms, 15)):
+        state, cfg, batch, bg = train_workload(dev, stream=stream)
+        train_step(cfg, state, batch, bg, 1, 3)                 # warm-up
+        profile_steps(cfg, state, batch, bg, ms_step, phase=phase)
     print(json.dumps({"kernels": [
         dict(e, route="cuda", source=KERNELS[e["name"]][0],
              replaces=KERNELS[e["name"]][1], library_ms=None)

@@ -9,6 +9,20 @@ the TPU kernels in langsplat4d/ops/tile_composite.py).
   list and writes accum [T, C+1, px].
 - `composite_tiles_backward` (`composite_backward_pallas` /
   `_backward_kernel`): per-(tile, slot) gradient rows of that blend.
+- `composite_stream_chunks` (`composite_stream_chunks_pallas` /
+  `_stream_chunk_fwd_kernel`): the training forward on the stream layout;
+  each tile blends its ragged segment and writes accum [T, C+1, px]. The
+  names keep the JAX functions', but the port has no chunks: the TPU kernels
+  need a chunk-aligned stream with padding slots and a chunk-to-tile table
+  because their grid is sequential; here a block owns a tile and the stream
+  is dense, rows [B, PW] with segment bounds starts [T+1].
+- `composite_stream_chunks_backward`
+  (`composite_stream_chunks_backward_pallas` / `_stream_chunk_bwd_kernel`):
+  one gradient row per slot of that stream.
+- `composite_cells` (`composite_cells_pallas` / `_cell_kernel`): a render
+  option; every tile walks the depth-ordered candidates of its cell of
+  cell x cell tiles and keeps those whose tile rect (row columns 6 and 7,
+  x + 256 y) covers it; no per-tile lists, no capacity.
 
 Each wrapper launches its hand-written CUDA kernel (csrc/*.cu) for CUDA
 tensors and runs the plain PyTorch version beside it (`*_plain`) for CPU
@@ -40,9 +54,9 @@ The forward kernels and their plain versions do the same float32 operations
 in the same order: the kernels use fmaf for the chain and are built with
 --fmad=false so that nothing else fuses; the plain versions form each fused
 multiply-add from an exact float64 product. So they agree bit for bit unless
-the device's expf differs from PyTorch's. The backward kernel sums over a
-tile's pixels in another order than its plain version (warp shuffles), so
-those two agree to rounding only.
+the device's expf differs from PyTorch's. The backward kernels sum over a
+tile's pixels in another order than their plain versions (warp shuffles), so
+those agree to rounding only.
 """
 from __future__ import annotations
 
@@ -64,15 +78,18 @@ T_EPS = 1e-4
 MAX_ALPHA = 0.99
 
 SUPPORTED_ROW_WIDTHS = (16, 24, 32)
-SUPPORTED_TILE_SIZES = (16, 32)        # the stream kernel's
-LIST_TILE_SIZE = 16                    # the tile-list kernels'
+SUPPORTED_TILE_SIZES = (16, 32)        # the render stream kernel's
+LIST_TILE_SIZE = 16                    # every other kernel's
+MAX_RECT_COORD = 255                   # cell rows pack a rect as x + 256 y
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 COMMON_HEADER = CSRC / "composite_common.cuh"
 BUILD_DIR = _PKG / "_build"
 # one library per kernel source; the C entry point is "ls4d_" + name
-KERNELS = ("composite_stream", "composite_tiles", "composite_tiles_backward")
+KERNELS = ("composite_stream", "composite_tiles", "composite_tiles_backward",
+           "composite_stream_chunks", "composite_stream_chunks_backward",
+           "composite_cells")
 # --fmad=false keeps a*b+c as two roundings, as PyTorch's separate
 # elementwise ops do, so the kernels' power sign tests (power > 0 kills a
 # Gaussian) agree with the plain versions' bit for bit. -Xptxas -v prints
@@ -84,6 +101,9 @@ _C_ARGS = {   # pointers, then ints; the stream pointer is appended
     "composite_stream": (4, 7),
     "composite_tiles": (4, 5),
     "composite_tiles_backward": (5, 5),
+    "composite_stream_chunks": (4, 4),
+    "composite_stream_chunks_backward": (5, 4),
+    "composite_cells": (4, 5),
 }
 
 
@@ -264,9 +284,7 @@ def composite_tiles(rows: torch.Tensor, counts: torch.Tensor,
     if rows.device.type != "cuda":
         raise ValueError(f"composite_tiles: no kernel for {rows.device}")
     _check_list_args(rows, counts, tile_size)
-    if bg.dtype != torch.float32 or bg.shape != (3,):
-        raise ValueError(f"bg must be [3] float32, got {tuple(bg.shape)}")
-    _check_on_device(rows.device, bg=bg)
+    _check_bg(bg, rows.device)
     num_tiles, k, pw = rows.shape
     out = torch.empty((num_tiles, pw - HDR + 1, tile_size * tile_size),
                       dtype=torch.float32, device=rows.device)
@@ -316,6 +334,133 @@ def composite_tiles_backward(rows: torch.Tensor, counts: torch.Tensor,
 composite_tiles_backward.launches = 0
 
 
+def _check_segment_args(rows, starts, tile_size, what="starts"):
+    """rows [B, PW] float32 and bounds [n + 1] int32 of a 16-px kernel;
+    returns n."""
+    if rows.dtype != torch.float32 or rows.dim() != 2:
+        raise ValueError(f"rows must be [B, PW] float32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if rows.shape[1] not in SUPPORTED_ROW_WIDTHS:
+        raise ValueError(f"row width {rows.shape[1]} not in "
+                         f"{SUPPORTED_ROW_WIDTHS}")
+    if tile_size != LIST_TILE_SIZE:
+        raise ValueError(f"tile size {tile_size}: this kernel takes "
+                         f"{LIST_TILE_SIZE}")
+    if starts.dtype != torch.int32 or starts.dim() != 1 or not starts.numel():
+        raise ValueError(f"{what} must be [n + 1] int32, got "
+                         f"{tuple(starts.shape)} {starts.dtype}")
+    _check_on_device(rows.device, rows=rows, **{what: starts})
+    return starts.numel() - 1
+
+
+def _check_bg(bg, device):
+    if bg.dtype != torch.float32 or bg.shape != (3,):
+        raise ValueError(f"bg must be [3] float32, got {tuple(bg.shape)}")
+    _check_on_device(device, bg=bg)
+
+
+def composite_stream_chunks(rows: torch.Tensor, starts: torch.Tensor,
+                            bg: torch.Tensor, *, tiles_x: int,
+                            tile_size: int = 16,
+                            hard_cutoffs: bool = True) -> torch.Tensor:
+    """rows [B, PW] f32 in (tile, depth) order, starts [T+1] int32 segment
+    bounds, bg [3] -> accum [T, PW - 8 + 1, px] as `composite_tiles`. Tile
+    t blends rows[starts[t]:starts[t+1]]; an empty segment gives bg."""
+    if rows.device.type == "cpu":
+        return composite_stream_chunks_plain(
+            rows, starts, bg, tiles_x=tiles_x, tile_size=tile_size,
+            hard_cutoffs=hard_cutoffs)
+    if rows.device.type != "cuda":
+        raise ValueError(
+            f"composite_stream_chunks: no kernel for {rows.device}")
+    num_tiles = _check_segment_args(rows, starts, tile_size)
+    _check_bg(bg, rows.device)
+    pw = rows.shape[1]
+    out = torch.empty((num_tiles, pw - HDR + 1, tile_size * tile_size),
+                      dtype=torch.float32, device=rows.device)
+    _launch("composite_stream_chunks", rows.device, rows.data_ptr(),
+            starts.data_ptr(), bg.data_ptr(), out.data_ptr(), num_tiles,
+            tiles_x, pw, int(hard_cutoffs))
+    composite_stream_chunks.launches += 1
+    return out
+
+
+composite_stream_chunks.launches = 0
+
+
+def composite_stream_chunks_backward(rows: torch.Tensor,
+                                     starts: torch.Tensor,
+                                     g_out: torch.Tensor,
+                                     total: torch.Tensor, *, tiles_x: int,
+                                     tile_size: int = 16,
+                                     hard_cutoffs: bool = True
+                                     ) -> torch.Tensor:
+    """rows, starts as `composite_stream_chunks` with starts[0] = 0 and
+    starts[T] = B (every slot belongs to a tile); g_out [T, PW - 8 + 1, px]
+    the cotangent of accum; total [T, px] = sum_c accum * g_out -> d_rows
+    [B, PW], one gradient row per slot: [dmx, dmy, dc0, dc1, dc2, d_op, 0, 0,
+    d_feat ...]. The caller scatter-adds the rows to the Gaussians."""
+    if rows.device.type == "cpu":
+        return composite_stream_chunks_backward_plain(
+            rows, starts, g_out, total, tiles_x=tiles_x, tile_size=tile_size,
+            hard_cutoffs=hard_cutoffs)
+    if rows.device.type != "cuda":
+        raise ValueError(
+            f"composite_stream_chunks_backward: no kernel for {rows.device}")
+    num_tiles = _check_segment_args(rows, starts, tile_size)
+    pw = rows.shape[1]
+    px = tile_size * tile_size
+    for name, t, shape in (("g_out", g_out, (num_tiles, pw - HDR + 1, px)),
+                           ("total", total, (num_tiles, px))):
+        if t.dtype != torch.float32 or t.shape != shape:
+            raise ValueError(f"{name} must be {list(shape)} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    _check_on_device(rows.device, g_out=g_out, total=total)
+    d_rows = torch.empty_like(rows)
+    _launch("composite_stream_chunks_backward", rows.device, rows.data_ptr(),
+            starts.data_ptr(), g_out.data_ptr(), total.data_ptr(),
+            d_rows.data_ptr(), num_tiles, tiles_x, pw, int(hard_cutoffs))
+    composite_stream_chunks_backward.launches += 1
+    return d_rows
+
+
+composite_stream_chunks_backward.launches = 0
+
+
+def composite_cells(rows: torch.Tensor, cell_starts: torch.Tensor,
+                    bg: torch.Tensor, *, cells_x: int, cell: int = 8,
+                    tile_size: int = 16,
+                    hard_cutoffs: bool = True) -> torch.Tensor:
+    """rows [M, PW] f32 in (cell, depth) order with the tile rect in columns
+    6 and 7 (min_x + 256 min_y, max_x + 256 max_y; max exclusive),
+    cell_starts [n_cells + 1] int32, bg [3] -> [n_cells, cell * cell,
+    PW - 8 + 1, px]: local tile ly * cell + lx of cell c blends the rows of
+    rows[cell_starts[c]:cell_starts[c+1]] whose rect covers it."""
+    if rows.device.type == "cpu":
+        return composite_cells_plain(
+            rows, cell_starts, bg, cells_x=cells_x, cell=cell,
+            tile_size=tile_size, hard_cutoffs=hard_cutoffs)
+    if rows.device.type != "cuda":
+        raise ValueError(f"composite_cells: no kernel for {rows.device}")
+    n_cells = _check_segment_args(rows, cell_starts, tile_size,
+                                  what="cell_starts")
+    _check_bg(bg, rows.device)
+    if cell < 1 or cells_x < 1:
+        raise ValueError(f"cell {cell} and cells_x {cells_x} must be >= 1")
+    pw = rows.shape[1]
+    out = torch.empty((n_cells, cell * cell, pw - HDR + 1,
+                       tile_size * tile_size), dtype=torch.float32,
+                      device=rows.device)
+    _launch("composite_cells", rows.device, rows.data_ptr(),
+            cell_starts.data_ptr(), bg.data_ptr(), out.data_ptr(), n_cells,
+            cells_x, cell, pw, int(hard_cutoffs))
+    composite_cells.launches += 1
+    return out
+
+
+composite_cells.launches = 0
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a * b + c with one rounding: the float64 product of two
     float32 values is exact."""
@@ -323,16 +468,23 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 class _TileGrid:
-    """Tile origins [T, 1] and the tile-local pixel basis [px] of a grid."""
+    """Tile origins [T, 1] and the tile-local pixel basis [px] of the
+    tiles at (tx[t], ty[t]) of the tile grid."""
 
-    def __init__(self, num_tiles: int, tiles_x: int, ts: int, dev):
-        tile = torch.arange(num_tiles, device=dev)
-        self.ox = ((tile % tiles_x) * ts).float()[:, None]
-        self.oy = ((tile // tiles_x) * ts).float()[:, None]
+    def __init__(self, tx: torch.Tensor, ty: torch.Tensor, ts: int):
+        dev = tx.device
+        self.ox = (tx * ts).float()[:, None]
+        self.oy = (ty * ts).float()[:, None]
         self.lx = torch.arange(ts, device=dev).repeat(ts).float()
         self.ly = torch.arange(ts, device=dev).repeat_interleave(ts).float()
         self.xx, self.yy, self.xy = (self.lx * self.lx, self.ly * self.ly,
                                      self.lx * self.ly)
+
+    @classmethod
+    def regular(cls, num_tiles: int, tiles_x: int, ts: int, dev):
+        """The first `num_tiles` tiles of a grid `tiles_x` wide, row-major."""
+        tile = torch.arange(num_tiles, device=dev)
+        return cls(tile % tiles_x, tile // tiles_x, ts)
 
     def alpha(self, r: torch.Tensor, hard_cutoffs: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -405,33 +557,104 @@ def _blend_plain(row_at, kmax: int, grid: _TileGrid, c_feat: int,
     return acc, asum
 
 
+def _segment_walk(rows: torch.Tensor, starts: torch.Tensor):
+    """The `row_at(k)` callback and step count of `_blend_plain` for ragged
+    segments: tile t's k-th row is rows[starts[t] + k]. -> (row_at, kmax,
+    seg_start [T], seg_len [T])."""
+    starts = starts.long()
+    seg_start = starts[:-1]
+    seg_len = starts[1:] - seg_start
+    kmax = int(seg_len.max()) if seg_len.numel() else 0
+    last = max(rows.shape[0] - 1, 0)
+
+    def row_at(k):
+        return (rows[torch.clamp(seg_start + k, max=last)],
+                (k < seg_len)[:, None])
+
+    return row_at, kmax, seg_start, seg_len
+
+
+def _blend_segments(rows: torch.Tensor, starts: torch.Tensor,
+                    grid: _TileGrid, bg: torch.Tensor, hard_cutoffs: bool,
+                    stats: Optional[dict]) -> torch.Tensor:
+    """Every tile of `grid` blends its segment rows[starts[t]:starts[t+1]]
+    -> accum [T, C + 1, px] (`stats`: see `_blend_plain`)."""
+    row_at, kmax, _, _ = _segment_walk(rows, starts)
+    acc, asum = _blend_plain(row_at, kmax, grid, rows.shape[1] - HDR, bg,
+                             hard_cutoffs, stats)
+    return torch.cat([acc, asum[None]], dim=0).permute(1, 0, 2).contiguous()
+
+
+def composite_stream_chunks_plain(rows: torch.Tensor, starts: torch.Tensor,
+                                  bg: torch.Tensor, *, tiles_x: int,
+                                  tile_size: int = 16,
+                                  hard_cutoffs: bool = True,
+                                  stats: Optional[dict] = None
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of the stream-layout training forward
+    (`stats`: see `_blend_plain`)."""
+    grid = _TileGrid.regular(starts.numel() - 1, tiles_x, tile_size,
+                             rows.device)
+    return _blend_segments(rows, starts, grid, bg, hard_cutoffs, stats)
+
+
 def composite_stream_plain(rows: torch.Tensor, starts: torch.Tensor,
                            bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
                            tile_size: int, height: int, width: int,
                            hard_cutoffs: bool = True,
                            stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch version of the stream kernel (`stats`: see
-    `_blend_plain`)."""
+    `_blend_plain`): the segments' blend, stitched to the cropped image."""
     ts = tile_size
-    num_tiles = tiles_x * tiles_y
-    c_feat = rows.shape[1] - HDR
-    starts = starts.long()
-    seg_start = starts[:-1]
-    seg_len = starts[1:] - seg_start
-    kmax = int(seg_len.max()) if num_tiles else 0
-
-    def row_at(k):
-        return (rows[torch.clamp(seg_start + k, max=rows.shape[0] - 1)],
-                (k < seg_len)[:, None])
-
-    acc, asum = _blend_plain(row_at, kmax,
-                             _TileGrid(num_tiles, tiles_x, ts, rows.device),
-                             c_feat, bg, hard_cutoffs, stats)
-    img = torch.cat([acc, asum[None]], dim=0)           # [C+1, T, px]
-    img = img.reshape(c_feat + 1, tiles_y, tiles_x, ts, ts)
-    img = img.permute(0, 1, 3, 2, 4).reshape(c_feat + 1, tiles_y * ts,
-                                              tiles_x * ts)
+    accum = composite_stream_chunks_plain(
+        rows, starts, bg, tiles_x=tiles_x, tile_size=ts,
+        hard_cutoffs=hard_cutoffs, stats=stats)          # [T, C+1, px]
+    c_out = accum.shape[1]
+    img = accum.reshape(tiles_y, tiles_x, c_out, ts, ts)
+    img = img.permute(2, 0, 3, 1, 4).reshape(c_out, tiles_y * ts,
+                                             tiles_x * ts)
     return img[:, :height, :width].contiguous()
+
+
+def composite_cells_plain(rows: torch.Tensor, cell_starts: torch.Tensor,
+                          bg: torch.Tensor, *, cells_x: int, cell: int = 8,
+                          tile_size: int = 16, hard_cutoffs: bool = True,
+                          stats: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch version of the cell-list kernel: for every tile the
+    candidates of its cell whose rect covers it, in the list's order, become
+    that tile's segment, and the segments are blended as the stream's are.
+    `stats` (see `_blend_plain`) counts the covered rows only, as the kernel's
+    pixel loop sees no other; stats["rect_tests"] becomes the number of
+    (tile, candidate) pairs."""
+    dev = rows.device
+    n_cells = cell_starts.numel() - 1
+    bounds = cell_starts.tolist()
+    lt = torch.arange(cell * cell, device=dev)
+    txs, tys, picks, counts = [], [], [], []
+    for ci in range(n_cells):
+        cand = rows[bounds[ci]:bounds[ci + 1]]
+        tx = (ci % cells_x) * cell + lt % cell                  # [cell^2]
+        ty = (ci // cells_x) * cell + lt // cell
+        min_x = torch.fmod(cand[:, 6], 256.0)
+        min_y = (cand[:, 6] - min_x) / 256.0
+        max_x = torch.fmod(cand[:, 7], 256.0)
+        max_y = (cand[:, 7] - max_x) / 256.0
+        covered = ((min_x <= tx[:, None]) & (tx[:, None] < max_x)
+                   & (min_y <= ty[:, None]) & (ty[:, None] < max_y))
+        picks.append(bounds[ci] + covered.nonzero()[:, 1])  # (tile, depth)
+        counts.append(covered.sum(1))
+        txs.append(tx)
+        tys.append(ty)
+    starts = torch.zeros(n_cells * cell * cell + 1, dtype=torch.int64,
+                         device=dev)
+    starts[1:] = torch.cumsum(torch.cat(counts), 0)
+    out = _blend_segments(
+        rows[torch.cat(picks)], starts,
+        _TileGrid(torch.cat(txs), torch.cat(tys), tile_size), bg,
+        hard_cutoffs, stats)
+    if stats is not None:
+        stats["rect_tests"] = rows.shape[0] * cell * cell
+    return out.reshape(n_cells, cell * cell, out.shape[1], out.shape[2])
 
 
 def composite_tiles_plain(rows: torch.Tensor, counts: torch.Tensor,
@@ -448,35 +671,31 @@ def composite_tiles_plain(rows: torch.Tensor, counts: torch.Tensor,
         return rows[:, k], (k < counts)[:, None]
 
     acc, asum = _blend_plain(
-        row_at, kmax, _TileGrid(num_tiles, tiles_x, tile_size, rows.device),
+        row_at, kmax,
+        _TileGrid.regular(num_tiles, tiles_x, tile_size, rows.device),
         pw - HDR, bg, hard_cutoffs, stats)
     return torch.cat([acc, asum[None]], dim=0).permute(1, 0, 2).contiguous()
 
 
-def composite_tiles_backward_plain(rows: torch.Tensor, counts: torch.Tensor,
-                                   g_out: torch.Tensor, total: torch.Tensor,
-                                   *, tiles_x: int, tile_size: int = 16,
-                                   hard_cutoffs: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of the tile-list backward kernel: the same
-    front-to-back re-walk, one list slot per step."""
-    num_tiles, k_cap, pw = rows.shape
-    c_feat = pw - HDR
-    grid = _TileGrid(num_tiles, tiles_x, tile_size, rows.device)
+def _backward_plain(row_at, kmax: int, grid: _TileGrid, g_out: torch.Tensor,
+                    total: torch.Tensor, hard_cutoffs: bool):
+    """The backward's front-to-back re-walk, one step per position k of
+    every tile's rows (`row_at` as in `_blend_plain`): yields (k, valid
+    [T], d [T, PW]), the gradient row of each tile's k-th row (zero where
+    the tile has no such row)."""
+    c_feat = g_out.shape[1] - 1
     basis = torch.stack([torch.ones_like(grid.lx), grid.lx, grid.ly, grid.xx,
                          grid.yy, grid.xy])              # [6, px]
     g_feat = g_out[:, :c_feat]                           # [T, C, px]
     g_alpha = g_out[:, c_feat]                           # [T, px]
-    kmax = min(int(counts.max()), k_cap) if num_tiles else 0
-
-    d_rows = torch.zeros_like(rows)
     T = torch.ones_like(total)
     prefix = torch.zeros_like(total)
     done = torch.zeros_like(total, dtype=torch.bool)
     for k in range(kmax):
-        r = rows[:, k]
+        r, valid = row_at(k)
         alpha_raw, alpha, skip = grid.alpha(r, hard_cutoffs)
         test_T = T * (1.0 - alpha)
-        live = (k < counts)[:, None] & ~done & ~skip
+        live = valid & ~done & ~skip
         if hard_cutoffs:
             stop = live & (test_T < T_EPS)
             done = done | stop
@@ -493,19 +712,55 @@ def composite_tiles_backward_plain(rows: torch.Tensor, counts: torch.Tensor,
         mx = r[:, 0] - grid.ox[:, 0]
         my = r[:, 1] - grid.oy[:, 0]
         c0, c1, c2, ln_op = r[:, 2], r[:, 3], r[:, 4], r[:, 5]
-        d_rows[:, k, 0] = ((-c0 * mx - c1 * my) * d[:, 0] + c0 * d[:, 1]
-                           + c1 * d[:, 2])
-        d_rows[:, k, 1] = ((-c2 * my - c1 * mx) * d[:, 0] + c1 * d[:, 1]
-                           + c2 * d[:, 2])
-        d_rows[:, k, 2] = (-0.5 * mx * mx * d[:, 0] + mx * d[:, 1]
-                           - 0.5 * d[:, 3])
-        d_rows[:, k, 3] = (-mx * my * d[:, 0] + my * d[:, 1] + mx * d[:, 2]
-                           - d[:, 5])
-        d_rows[:, k, 4] = (-0.5 * my * my * d[:, 0] + my * d[:, 2]
-                           - 0.5 * d[:, 4])
+        out = torch.zeros_like(r)
+        out[:, 0] = ((-c0 * mx - c1 * my) * d[:, 0] + c0 * d[:, 1]
+                     + c1 * d[:, 2])
+        out[:, 1] = ((-c2 * my - c1 * mx) * d[:, 0] + c1 * d[:, 1]
+                     + c2 * d[:, 2])
+        out[:, 2] = -0.5 * mx * mx * d[:, 0] + mx * d[:, 1] - 0.5 * d[:, 3]
+        out[:, 3] = (-mx * my * d[:, 0] + my * d[:, 1] + mx * d[:, 2]
+                     - d[:, 5])
+        out[:, 4] = -0.5 * my * my * d[:, 0] + my * d[:, 2] - 0.5 * d[:, 4]
         # d_op = d_ln_op / op; the padded slots' sentinel ln_op is guarded
-        d_rows[:, k, 5] = torch.where(ln_op > -1e29,
-                                      d[:, 0] * torch.exp(-ln_op), 0.0)
-        d_rows[:, k, HDR:] = (g_feat * w[:, None, :]).sum(-1)
+        out[:, 5] = torch.where(ln_op > -1e29, d[:, 0] * torch.exp(-ln_op),
+                                0.0)
+        out[:, HDR:] = (g_feat * w[:, None, :]).sum(-1)
         T = torch.where(live, test_T, T)
+        yield k, valid[:, 0], out
+
+
+def composite_tiles_backward_plain(rows: torch.Tensor, counts: torch.Tensor,
+                                   g_out: torch.Tensor, total: torch.Tensor,
+                                   *, tiles_x: int, tile_size: int = 16,
+                                   hard_cutoffs: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the tile-list backward kernel: the same
+    front-to-back re-walk, one list slot per step."""
+    num_tiles, k_cap, _ = rows.shape
+    kmax = min(int(counts.max()), k_cap) if num_tiles else 0
+
+    def row_at(k):
+        return rows[:, k], (k < counts)[:, None]
+
+    d_rows = torch.zeros_like(rows)
+    for k, _, d in _backward_plain(
+            row_at, kmax,
+            _TileGrid.regular(num_tiles, tiles_x, tile_size, rows.device),
+            g_out, total, hard_cutoffs):
+        d_rows[:, k] = d
+    return d_rows
+
+
+def composite_stream_chunks_backward_plain(
+        rows: torch.Tensor, starts: torch.Tensor, g_out: torch.Tensor,
+        total: torch.Tensor, *, tiles_x: int, tile_size: int = 16,
+        hard_cutoffs: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the stream-layout backward kernel: every
+    tile re-walks its segment, one position per step."""
+    row_at, kmax, seg_start, _ = _segment_walk(rows, starts)
+    grid = _TileGrid.regular(starts.numel() - 1, tiles_x, tile_size,
+                             rows.device)
+    d_rows = torch.zeros_like(rows)
+    for k, valid, d in _backward_plain(row_at, kmax, grid, g_out, total,
+                                       hard_cutoffs):
+        d_rows[seg_start[valid] + k] = d[valid]
     return d_rows

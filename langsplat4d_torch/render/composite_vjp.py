@@ -25,19 +25,24 @@ from langsplat4d_torch.ops.composite import HDR
 from langsplat4d_torch.render.stream import row_width
 
 
-def kernel_rows(packed: torch.Tensor, entries: torch.Tensor,
-                valid: torch.Tensor):
-    """Gather the per-tile kernel rows. packed [N, 6 + C] = [pix(2),
-    conic(3), opacity, feats(C)], entries/valid [T, K] -> (rows [T, K, PW]
-    = [pix, conic, ln_op, 0, 0, feats, 0..] with ln_op = -1e30 in invalid
-    slots, counts [T] int32)."""
+def kernel_table(packed: torch.Tensor) -> torch.Tensor:
+    """packed [N, 6 + C] = [pix(2), conic(3), opacity, feats(C)] -> the
+    Gaussians in the kernels' row layout [N, PW] = [pix, conic, ln_op, 0, 0,
+    feats, 0..], ln_op = ln(max(opacity, 1e-30))."""
     n, c_all = packed.shape[0], packed.shape[1] - 6
     pw = row_width(c_all)
     ln_op = torch.log(torch.clamp(packed[:, 5:6], min=1e-30))
-    krows = torch.cat([packed[:, :5], ln_op, packed.new_zeros((n, 2)),
-                       packed[:, 6:],
-                       packed.new_zeros((n, pw - HDR - c_all))], dim=1)
-    rows = krows[entries]
+    return torch.cat([packed[:, :5], ln_op, packed.new_zeros((n, 2)),
+                      packed[:, 6:],
+                      packed.new_zeros((n, pw - HDR - c_all))], dim=1)
+
+
+def kernel_rows(packed: torch.Tensor, entries: torch.Tensor,
+                valid: torch.Tensor):
+    """Gather the per-tile kernel rows. packed [N, 6 + C], entries/valid
+    [T, K] -> (rows [T, K, PW] of `kernel_table` with ln_op = -1e30 in
+    invalid slots, counts [T] int32)."""
+    rows = kernel_table(packed)[entries]
     rows[:, :, 5] = torch.where(valid, rows[:, :, 5], -1e30)
     return rows, valid.sum(dim=1, dtype=torch.int32)
 
@@ -63,9 +68,10 @@ def pad_cotangent(g_out: torch.Tensor, c_pad: int) -> torch.Tensor:
 
 def scatter_rows(d_rows: torch.Tensor, entries: torch.Tensor,
                  packed: torch.Tensor) -> torch.Tensor:
-    """Scatter-add the per-(tile, slot) gradient rows [T, K, PW] to the
-    Gaussians: the gradient of `packed` [N, 6 + C]. Rows of invalid slots are
-    zero, so their index does not matter."""
+    """Scatter-add the gradient rows [..., PW] (one per list slot [T, K] or
+    per stream slot [B]) to the Gaussians `entries` names: the gradient of
+    `packed` [N, 6 + C]. Rows of invalid slots are zero, so their index does
+    not matter."""
     c_all = packed.shape[1] - 6
     flat = d_rows.reshape(-1, d_rows.shape[-1])
     d_sel = torch.cat([flat[:, :6], flat[:, HDR:HDR + c_all]], dim=1)

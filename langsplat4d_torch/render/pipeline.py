@@ -18,6 +18,7 @@ from langsplat4d_torch.core.transforms import safe_normalize
 from langsplat4d_torch.field.deformation import (DeformConfig, DeformNetwork,
                                                  deform_forward)
 from langsplat4d_torch.render.raster import (CameraParams, RasterSettings,
+                                             binning_saturation, preprocess,
                                              rasterize)
 
 STAGES = ("coarse-base", "coarse-lang", "fine-base", "fine-lang",
@@ -97,3 +98,17 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
         "depth": depth,
         "coff": coff,
     }
+
+
+@torch.no_grad()
+def binning_report(settings: RasterSettings, cam: CameraParams,
+                   gs: GaussianState) -> Dict[str, float]:
+    """The tile lists' saturation on the undeformed Gaussians (deformation
+    moves them little against a tile). See `raster.binning_saturation` for
+    the fields."""
+    prep = preprocess(
+        settings, cam, gs.xyz, torch.sigmoid(gs.opacity),
+        torch.exp(gs.scaling), safe_normalize(gs.rotation), None,
+        gs.xyz.new_zeros((gs.capacity, 3)), active=gs.active_mask())
+    return {k: float(v) for k, v in binning_saturation(settings,
+                                                       prep).items()}

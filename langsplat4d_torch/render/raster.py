@@ -1,15 +1,23 @@
 """Tile-based Gaussian rasterizer (port of langsplat4d/render/raster.py: the
-stream path for rendering and the tile-list analytic-VJP path for training).
+stream path for rendering, the tile-list and the stream-layout analytic-VJP
+paths for training, and the cell-list render option).
 
 `preprocess` projects the Gaussians with the CUDA reference's semantics
 (frustum cull at view z <= 0.2, EWA covariance with +0.3 dilation, SH clamp
 at 0) and is differentiable under autograd. `rasterize` bins them with the
-exact duplicate-and-sort stream (render/stream.py) and then either
-composites each tile's segment with the stream kernel, which writes the
-[C, H, W] image directly (rendering), or, with `settings.analytic_vjp`, cuts
-per-tile lists of `tile_capacity` entries from the stream and composites
-them with the tile-list kernel and its hand-derived backward
-(render/composite_vjp.py), as the JAX package's training step does.
+exact duplicate-and-sort stream (render/stream.py) and then, in the JAX
+package's order of precedence:
+- `settings.stream_train`: gathers differentiable rows by the stream's slots
+  and composites them with the stream-layout training kernel and its
+  hand-derived backward (render/stream_vjp.py); nothing is truncated;
+- `settings.cell_composite`: bins by coarse cells only, and every tile walks
+  its cell's candidates inside the cell kernel (rendering);
+- `settings.analytic_vjp`: cuts per-tile lists of `tile_capacity` entries
+  from the stream and composites them with the tile-list kernel and its
+  hand-derived backward (render/composite_vjp.py), as the JAX package's
+  default training step does;
+- else composites each tile's segment with the stream kernel, which writes
+  the [C, H, W] image directly (rendering).
 """
 from __future__ import annotations
 
@@ -19,9 +27,14 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from langsplat4d_torch.core.sh import eval_sh
-from langsplat4d_torch.ops.composite import composite_stream
+from langsplat4d_torch.ops.composite import (MAX_RECT_COORD, composite_cells,
+                                             composite_stream)
 from langsplat4d_torch.render.composite_vjp import composite_cv
-from langsplat4d_torch.render.stream import bin_tiles, build_stream
+from langsplat4d_torch.render.stream import (bin_cells, bin_tiles,
+                                             build_stream,
+                                             build_stream_train,
+                                             pack_cell_rows, sorted_pairs)
+from langsplat4d_torch.render.stream_vjp import composite_stream_train
 
 
 class CameraParams(NamedTuple):
@@ -48,10 +61,27 @@ class RasterSettings:
     # tile-list kernel with its hand-derived backward. Off: the stream path.
     analytic_vjp: bool = False
     tile_capacity: Optional[int] = None
+    # The training path on the stream layout: one slot per (Gaussian, tile)
+    # pair, no capacity, nothing dropped (render/stream_vjp.py). Takes
+    # precedence over `analytic_vjp`; `stream_ellipse_cull` drops the pairs
+    # whose tile lies wholly outside the alpha >= 1/255 ellipse, which the
+    # compositor would give zero weight anyway.
+    stream_train: bool = False
+    stream_ellipse_cull: bool = True
+    # A render option: bin by cells of `bin_cell_tiles`^2 tiles only; every
+    # tile walks its cell's depth-ordered candidates in the cell kernel.
+    cell_composite: bool = False
+    bin_cell_tiles: int = 8
 
     def __post_init__(self):
-        if self.analytic_vjp and self.tile_capacity is None:
+        if (self.analytic_vjp and not self.stream_train
+                and self.tile_capacity is None):
             raise ValueError("analytic_vjp needs a tile_capacity")
+        if self.cell_composite and max(self.tiles_x,
+                                       self.tiles_y) > MAX_RECT_COORD:
+            raise ValueError(
+                f"cell_composite packs tile rects 8 bits a coordinate: "
+                f"{self.tiles_x} x {self.tiles_y} tiles is too many")
 
     @property
     def tiles_x(self) -> int:
@@ -64,6 +94,14 @@ class RasterSettings:
     @property
     def num_tiles(self) -> int:
         return self.tiles_x * self.tiles_y
+
+    @property
+    def cells_x(self) -> int:
+        return -(-self.tiles_x // self.bin_cell_tiles)
+
+    @property
+    def cells_y(self) -> int:
+        return -(-self.tiles_y // self.bin_cell_tiles)
 
 
 def preprocess(settings: RasterSettings, cam: CameraParams,
@@ -258,6 +296,55 @@ def composite_lists(settings: RasterSettings, prep, features,
     return tiles_to_image(settings, accum)
 
 
+def composite_stream_slots(settings: RasterSettings, prep, features,
+                           bg) -> torch.Tensor:
+    """The training composite on the stream layout: the stream's slots ->
+    one differentiable row gather -> the compositor with the hand-derived
+    backward -> [C + 1, H, W]."""
+    src, starts = build_stream_train(settings, prep,
+                                     settings.stream_ellipse_cull)
+    accum = composite_stream_train(
+        settings, pack_differentiable(prep, features), src, starts, bg)
+    return tiles_to_image(settings, accum)
+
+
+def composite_cell_lists(settings: RasterSettings, prep, features,
+                         bg) -> torch.Tensor:
+    """The cell-list composite: coarse binning only, then every tile walks
+    its cell's candidate rows inside the kernel -> [C + 1, H, W] (C the
+    padded channel count of the rows)."""
+    ts, cell = settings.tile_size, settings.bin_cell_tiles
+    src, cell_starts = bin_cells(settings, prep)
+    out = composite_cells(pack_cell_rows(prep, features, src), cell_starts,
+                          bg, cells_x=settings.cells_x, cell=cell,
+                          tile_size=ts, hard_cutoffs=settings.hard_cutoffs)
+    c_out = out.shape[2]             # [n_cells, cell^2, c_out, px]
+    img = out.reshape(settings.cells_y, settings.cells_x, cell, cell, c_out,
+                      ts, ts)
+    img = img.permute(4, 0, 2, 5, 1, 3, 6).reshape(
+        c_out, settings.cells_y * cell * ts, settings.cells_x * cell * ts)
+    return img[:, :settings.image_height, :settings.image_width]
+
+
+def binning_saturation(settings: RasterSettings,
+                       prep) -> Dict[str, torch.Tensor]:
+    """Truncation diagnostics of the tile lists (for reports, not the hot
+    path): `tile_full_frac`, the share of tiles whose list of
+    `settings.tile_capacity` entries is full, the only case in which a list
+    may have dropped Gaussians, and `tile_max_count`, the longest list there
+    would be without a capacity. (The JAX package also reports its band and
+    cell lists; the port has neither.)"""
+    if settings.tile_capacity is None:
+        raise ValueError("binning_saturation needs a tile_capacity")
+    prep = {k: prep[k].detach() for k in
+            ("depth", "visible", "rect_min", "rect_max")}
+    _, starts, _ = sorted_pairs(settings, prep, ellipse_cull=False)
+    counts = starts[1:] - starts[:-1]
+    return {"tile_full_frac":
+            (counts >= settings.tile_capacity).float().mean(),
+            "tile_max_count": counts.max()}
+
+
 def rasterize(settings: RasterSettings, cam: CameraParams,
               means3d, opacities, scales, rotations, shs, colors_precomp,
               language_features: torch.Tensor,   # [N, L]
@@ -266,13 +353,17 @@ def rasterize(settings: RasterSettings, cam: CameraParams,
     """Returns (rendered [3, H, W], language image [L, H, W], radii [N],
     depth [1, H, W]) — the CUDA rasterizer's return signature (reference
     gaussian_renderer/__init__.py:219-228). Differentiable only with
-    `settings.analytic_vjp`."""
+    `settings.stream_train` or `settings.analytic_vjp`."""
     prep = preprocess(settings, cam, means3d, opacities, scales, rotations,
                       shs, colors_precomp, cov3d_precomp, active,
                       means2d_dummy)
     feats = (language_features if settings.include_feature
              else language_features.new_zeros((means3d.shape[0], 0)))
-    if settings.analytic_vjp:
+    if settings.stream_train:
+        img = composite_stream_slots(settings, prep, feats, bg)
+    elif settings.cell_composite:
+        img = composite_cell_lists(settings, prep, feats, bg)
+    elif settings.analytic_vjp:
         img = composite_lists(settings, prep, feats, bg)
     else:
         rows, starts = build_stream(settings, prep, feats)

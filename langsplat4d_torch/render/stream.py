@@ -68,6 +68,49 @@ def tile_min_quad(A, B, C, cx, cy, x0, x1, y0, y1):
     return torch.where(inside, 0.0, m)
 
 
+def _depth_order(prep: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Front-to-back order: (dorder [N] the Gaussians by depth, rank [N]
+    each Gaussian's place in it). Invisible Gaussians sort last and never
+    emit; Gaussians of equal depth keep their index order (the sort is
+    stable), as the JAX package's top-k takes the lower index first."""
+    n = prep["depth"].shape[0]
+    dorder = torch.argsort(torch.where(prep["visible"], prep["depth"],
+                                       float("inf")), stable=True)
+    rank = torch.empty(n, dtype=torch.int64, device=dorder.device)
+    rank[dorder] = torch.arange(n, device=dorder.device)
+    return dorder, rank
+
+
+def _emit(rmin: torch.Tensor, rmax: torch.Tensor, visible: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One slot per bin of every visible Gaussian's rect [rmin, rmax) (int64
+    [N, 2], in tiles or in cells): (gid, bx, by), each [M], Gaussian by
+    Gaussian and row-major within a rect. The emitted count M is read on the
+    host (the one sync): it sizes the buffers."""
+    n = rmin.shape[0]
+    dev = rmin.device
+    span_x = rmax[:, 0] - rmin[:, 0]
+    count = torch.where(visible, span_x * (rmax[:, 1] - rmin[:, 1]), 0)
+    end = torch.cumsum(count, 0)
+    total = int(end[-1]) if n else 0
+    gid = torch.repeat_interleave(torch.arange(n, device=dev), count,
+                                  output_size=total)
+    off = torch.arange(total, device=dev) - (end - count)[gid]
+    sx = span_x[gid]
+    return gid, rmin[gid, 0] + off % sx, rmin[gid, 1] + off // sx
+
+
+def _sort_bins(bin_id: torch.Tensor, rank: torch.Tensor, num_bins: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort the slots by (bin, depth rank). -> (keys [M] int64 sorted,
+    starts [num_bins + 1] int32); slots of bin `num_bins` (culled) sort past
+    the last segment."""
+    keys, _ = torch.sort((bin_id << RANK_BITS) | rank)
+    bounds = torch.arange(num_bins + 1, device=keys.device) << RANK_BITS
+    return keys, torch.searchsorted(keys, bounds).to(torch.int32)
+
+
 def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
                  ellipse_cull: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -79,37 +122,13 @@ def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
     pixels > 2 ln(255 op)) are culled: the compositor would give them zero
     weight anyway. Culled slots get the key `num_tiles << 32` and sort past
     the last segment, so the valid pairs are keys[:starts[-1]].
-
-    Gaussians of equal depth keep their index order (the depth sort is
-    stable), as the JAX package's top-k takes the lower index first.
     """
     ts = settings.tile_size
-    tiles_x = settings.tiles_x
     num_tiles = settings.num_tiles
-    dev = prep["depth"].device
-    n = prep["depth"].shape[0]
-
-    # front-to-back order; invisible Gaussians sort last and never emit
-    dorder = torch.argsort(torch.where(prep["visible"], prep["depth"],
-                                       float("inf")), stable=True)
-    rank = torch.empty(n, dtype=torch.int64, device=dev)
-    rank[dorder] = torch.arange(n, device=dev)
-
-    rmin = prep["rect_min"].long()
-    rmax = prep["rect_max"].long()
-    span_x = rmax[:, 0] - rmin[:, 0]
-    count = torch.where(prep["visible"], span_x * (rmax[:, 1] - rmin[:, 1]),
-                        0)
-    end = torch.cumsum(count, 0)
-    total = int(end[-1]) if n else 0          # the one host sync
-    gid = torch.repeat_interleave(torch.arange(n, device=dev), count,
-                                  output_size=total)
-    off = torch.arange(total, device=dev) - (end - count)[gid]
-    sx = span_x[gid]
-    tx = rmin[gid, 0] + off % sx
-    ty = rmin[gid, 1] + off // sx
-
-    tile = ty * tiles_x + tx
+    dorder, rank = _depth_order(prep)
+    gid, tx, ty = _emit(prep["rect_min"].long(), prep["rect_max"].long(),
+                        prep["visible"])
+    tile = ty * settings.tiles_x + tx
     if ellipse_cull:
         conic = prep["conic"][gid]
         pix = prep["point_image"][gid]
@@ -121,9 +140,7 @@ def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
                           txf * float(ts), txf * float(ts) + (ts - 1.0),
                           tyf * float(ts), tyf * float(ts) + (ts - 1.0))
         tile = torch.where(q <= t2[gid], tile, num_tiles)
-    keys, _ = torch.sort((tile << RANK_BITS) | rank[gid])
-    bounds = torch.arange(num_tiles + 1, device=dev) << RANK_BITS
-    starts = torch.searchsorted(keys, bounds).to(torch.int32)
+    keys, starts = _sort_bins(tile, rank[gid], num_tiles)
     return keys, starts, dorder
 
 
@@ -174,3 +191,62 @@ def bin_tiles(settings, prep: Dict[str, torch.Tensor]
         return filler, valid
     rank = keys[torch.clamp(slot, max=keys.numel() - 1)] & RANK_MASK
     return torch.where(valid, dorder[rank], filler), valid
+
+
+def build_stream_train(settings, prep: Dict[str, torch.Tensor],
+                       ellipse_cull: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stream of the training path (the port of the JAX package's
+    `build_stream_train`). -> (src [B] int64, the Gaussian of every slot of
+    the (tile, depth)-sorted stream, starts [T+1] int32): tile t's segment
+    is src[starts[t]:starts[t+1]], front to back, starts[T] = B. The caller
+    gathers its differentiable rows by `src`; no gradient flows through the
+    build.
+
+    The stream is dense: the JAX build aligns every segment to a chunk and
+    names each chunk's tile because its kernels' grid is sequential, and
+    sizes tiers and a slot budget because XLA needs static shapes; here
+    nothing can overflow and no slot is padding. Unlike `bin_tiles` it
+    keeps the ellipse cull, so the stream holds only the pairs that can
+    reach a pixel. Reading B costs the build a second host sync."""
+    prep = {k: prep[k].detach() for k in
+            ("depth", "visible", "rect_min", "rect_max", "conic",
+             "point_image", "opacity")}
+    keys, starts, dorder = sorted_pairs(settings, prep, ellipse_cull)
+    n_slots = int(starts[-1]) if ellipse_cull else keys.numel()
+    return dorder[keys[:n_slots] & RANK_MASK], starts
+
+
+def bin_cells(settings, prep: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depth-ordered candidate lists per cell of `settings.bin_cell_tiles`^2
+    tiles (the port of the JAX package's `bin_cells`, by the same emit and
+    sort as the tile stream, at cell granularity). -> (src [M] int64,
+    cell_starts [n_cells + 1] int32): the candidates of cell c are
+    src[cell_starts[c]:cell_starts[c+1]], every visible Gaussian whose tile
+    rect touches the cell, front to back, equal depths by lower index. The
+    lists have no capacity: they equal the JAX lists wherever its
+    `band_capacity` and `cell_capacity` drop nothing."""
+    cell = settings.bin_cell_tiles
+    visible = prep["visible"].detach()
+    dorder, rank = _depth_order({"depth": prep["depth"].detach(),
+                                 "visible": visible})
+    cmin = prep["rect_min"].detach().long() // cell
+    cmax = (prep["rect_max"].detach().long() + (cell - 1)) // cell
+    gid, cx, cy = _emit(cmin, cmax, visible)
+    keys, cell_starts = _sort_bins(cy * settings.cells_x + cx, rank[gid],
+                                   settings.cells_x * settings.cells_y)
+    return dorder[keys & RANK_MASK], cell_starts
+
+
+def pack_cell_rows(prep: Dict[str, torch.Tensor], features: torch.Tensor,
+                   src: torch.Tensor) -> torch.Tensor:
+    """The cell kernel's rows [M, PW] (the JAX package's `pack_cell_rows`,
+    row-major): the attribute table's row of every candidate, with the
+    Gaussian's tile rect in the two spare header columns, 6 = min_x +
+    256 min_y and 7 = max_x + 256 max_y (floats; exact while the tile grid
+    has fewer than 256 tiles a side, which `RasterSettings` checks)."""
+    table = pack_attribute_table(prep, features)
+    table[:, 6] = prep["rect_min"][:, 0] + 256.0 * prep["rect_min"][:, 1]
+    table[:, 7] = prep["rect_max"][:, 0] + 256.0 * prep["rect_max"][:, 1]
+    return table[src]

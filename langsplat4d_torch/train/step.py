@@ -2,14 +2,15 @@
 langsplat4d/train/step.py; the body of the reference's hot loop,
 train.py:164-426).
 
-Renders each camera of the batch under autograd through the tile-list
-compositor with its hand-derived backward, computes the stage loss
-(train.py:283-337), takes gradients with respect to the trainable leaves and
+Renders each camera of the batch under autograd through the tile-list or the
+stream-layout compositor with its hand-derived backward, computes the stage
+loss (train.py:283-337), takes gradients with respect to the trainable leaves and
 the NDC viewspace dummies (the densification statistics, train.py:352-354)
 and applies the per-group Adam update. PyTorch runs eagerly, so there is no
 compiled step: `train_step` updates the state in place and returns it. The
-one host synchronisation of a step is the emitted pair count of the tile
-binning; the loss stays on the device.
+host synchronises once per camera on the emitted pair count of the tile
+binning (and once more on the stream's length with `stream_train`); the loss
+stays on the device.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from langsplat4d_torch.train.trainstate import GAUSSIAN_KEYS, TrainState
 
 class StepConfig(NamedTuple):
     """Per-stage configuration of the train step. `settings` must have
-    `analytic_vjp` on: the stream path has no backward."""
+    `analytic_vjp` or `stream_train` on: the render paths have no
+    backward."""
     settings: RasterSettings
     dcfg: DeformConfig
     lr_cfg: LRConfig

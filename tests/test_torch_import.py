@@ -1,5 +1,5 @@
-"""The port imports torch and never jax, and its CUDA wrapper has no
-fallback to the plain version."""
+"""The port imports torch and never jax, and its CUDA wrappers have no
+fallback to their plain versions."""
 import ast
 import inspect
 import os
@@ -29,6 +29,7 @@ SLICE = (
     "langsplat4d_torch.render.raster",
     "langsplat4d_torch.render.composite_vjp",
     "langsplat4d_torch.render.stream",
+    "langsplat4d_torch.render.stream_vjp",
     "langsplat4d_torch.render.pipeline",
     "langsplat4d_torch.render.driver",
     "langsplat4d_torch.utils.synth",
@@ -36,8 +37,11 @@ SLICE = (
     "langsplat4d_torch.train.optim",
     "langsplat4d_torch.train.trainstate",
     "langsplat4d_torch.train.step",
+    "langsplat4d_torch.train.loop",
 )
-WRAPPERS = ("composite_stream", "composite_tiles", "composite_tiles_backward")
+WRAPPERS = ("composite_stream", "composite_tiles", "composite_tiles_backward",
+            "composite_stream_chunks", "composite_stream_chunks_backward",
+            "composite_cells")
 
 
 def test_port_never_imports_jax():
@@ -162,12 +166,28 @@ def test_wrapper_refuses_devices_without_a_kernel(name):
                 torch.zeros((1, 4, 16), **m),
                 torch.zeros(1, dtype=torch.int32, **m), torch.zeros(3, **m),
                 **kw)
-        else:
+        elif name == "composite_tiles_backward":
             composite.composite_tiles_backward(
                 torch.zeros((1, 4, 16), **m),
                 torch.zeros(1, dtype=torch.int32, **m),
                 torch.zeros((1, 9, 256), **m), torch.zeros((1, 256), **m),
                 **kw)
+        elif name == "composite_stream_chunks":
+            composite.composite_stream_chunks(
+                torch.zeros((4, 16), **m),
+                torch.zeros(2, dtype=torch.int32, **m), torch.zeros(3, **m),
+                **kw)
+        elif name == "composite_stream_chunks_backward":
+            composite.composite_stream_chunks_backward(
+                torch.zeros((4, 16), **m),
+                torch.zeros(2, dtype=torch.int32, **m),
+                torch.zeros((1, 9, 256), **m), torch.zeros((1, 256), **m),
+                **kw)
+        else:
+            composite.composite_cells(
+                torch.zeros((4, 16), **m),
+                torch.zeros(2, dtype=torch.int32, **m), torch.zeros(3, **m),
+                cells_x=1, cell=2)
 
 
 def test_kernel_sources_are_plain_cuda():
@@ -178,6 +198,8 @@ def test_kernel_sources_are_plain_cuda():
     import re
     assert "arch=compute_90a,code=sm_90a" in composite.NVCC_FLAGS
     assert "--fmad=false" in composite.NVCC_FLAGS
+    assert composite.KERNELS == WRAPPERS
+    assert set(composite._C_ARGS) == set(WRAPPERS)
     for name in composite.KERNELS:
         src = composite.kernel_source(name).read_text()
         assert re.findall(r"#include\s+(\S+)", src) == [
@@ -187,4 +209,4 @@ def test_kernel_sources_are_plain_cuda():
     hdr = composite.COMMON_HEADER.read_text()
     assert re.findall(r"#include\s+(\S+)", hdr) == ["<cuda_runtime.h>"]
     with pytest.raises(ValueError, match="unknown kernel"):
-        composite.kernel_source("composite_cells")
+        composite.kernel_source("composite_bands")

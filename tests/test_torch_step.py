@@ -1,13 +1,18 @@
 """The training step as a whole, JAX vs the port, from the same numpy state
 and batch: the loss, the gradient of every leaf, the viewspace gradient,
 visibility and radii, and the parameters after two `train_step`s, for
-`coarse-base` and `fine-lang`; `train_step_packed` against `train_step`; and
+`coarse-base` and `fine-lang`, on the tile lists and on the stream layout
+(`stream_train`); `train_step_packed` against `train_step`; and
 `materialize_batch`; the plane regularizers and the SSIM term of the loss; the
 state's helpers and `eval_step`.
 
 The JAX side runs its analytic-VJP compositor (the jnp path the CPU uses)
 with one chunk per list (composite_chunk = tile_capacity), where its stop
-rule and the port's coincide, and exact top-k lists.
+rule and the port's coincide, and exact top-k lists. In the stream-train
+cases it runs its chunk-aligned stream build and the TPU kernel pair in
+interpret mode, with tiers and a budget that clip nothing and one chunk per
+tile (the chunk is as wide as the Gaussians' capacity, and a tile's segment
+holds a Gaussian at most once), where again the stop rules coincide.
 
 Bounds: loss 1e-5 relative. Gradients rtol 2e-3 with atol 2e-4 of the leaf's
 largest entry (the repo's gradient bound, tests/test_pallas_composite.py,
@@ -16,6 +21,7 @@ raw gradients are ~1e-4, where an absolute 2e-4 would pass anything).
 Parameters after two steps 5e-4 (the repo's cross-program bound,
 tests/test_parallel.py:252).
 """
+import contextlib
 import copy
 
 import jax
@@ -23,12 +29,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from langsplat4d.config import OptimizationConfig
 from langsplat4d.core import state as jstatelib
 from langsplat4d.field.deformation import (DeformConfig as JDeformConfig,
                                            init_deform_params)
 from langsplat4d.render import raster as JR
+from langsplat4d.render import stream as JStream
 from langsplat4d.train import optim as JO
 from langsplat4d.train import step as JS
 from langsplat4d.train.trainstate import make_train_state as j_make_state
@@ -81,17 +89,25 @@ def _batch(rng, b):
                 gt_lang=gt_lang, lang_mask=mask)
 
 
-def _configs(stage, jd, **extra):
+#: the JAX stream build's static sizes: every tier takes all CAP Gaussians
+#: and the budget every (Gaussian, tile) pair there can be, so nothing clips
+STREAM = dict(stream_train=True, stream_train_chunk=CAP,
+              stream_tiers=((3, CAP), (6, CAP), (16, CAP)),
+              stream_budget=CAP * 8)
+
+
+def _configs(stage, jd, stream=False, **extra):
     o = OptimizationConfig()
     js = JR.RasterSettings(H, W, sh_degree=3, lang_dim=3, tile_capacity=K,
                            composite_chunk=K, bin_tile_chunk=2,
-                           two_level_binning=False)
+                           two_level_binning=False,
+                           **(STREAM if stream else {}))
     kw = dict(stage=stage, no_dlang=STAGES[stage]["no_dlang"], lam=0.2,
               **extra)
     jcfg = JS.StepConfig(settings=js, dcfg=jd,
                          lr_cfg=JO.LRConfig.from_optim(o, 1.0), **kw)
     ts = TR.RasterSettings(H, W, sh_degree=3, tile_capacity=K,
-                           analytic_vjp=True)
+                           analytic_vjp=True, stream_train=stream)
     tcfg = TS.StepConfig(settings=ts, dcfg=DeformConfig(**SMALL),
                          lr_cfg=TO.LRConfig.from_optim(o, 1.0), **kw)
     return jcfg, tcfg
@@ -128,11 +144,40 @@ def _assert_grads_close(got, want, name):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("stage", list(STAGES))
-def test_step_matches_jax(rng, stage):
+def _assert_stream_clips_nothing(js, jstate, cam):
+    """`stream_overflow` on the undeformed Gaussians: no span beyond the
+    tiers, no tier and no budget short of its demand."""
+    gs = jstate.gaussians()
+    prep = JR.preprocess(js, cam, gs.xyz, jnp.zeros((CAP, 2)),
+                         jax.nn.sigmoid(gs.opacity), jnp.exp(gs.scaling),
+                         gs.rotation, None, jnp.zeros((CAP, 3)),
+                         active=gs.active_mask())
+    ov = JStream.stream_overflow(js, prep, tiers=js.stream_tiers)
+    assert int(ov["span_exceeded"]) == 0
+    for i, (_, cap) in enumerate(js.stream_tiers):
+        assert int(ov[f"tier{i + 2}_needed"]) <= cap
+    assert js.num_tiles * CAP <= js.stream_budget
+    assert js.stream_train_chunk >= CAP
+
+
+@pytest.mark.parametrize("stage,stream", [
+    pytest.param(st, flag, id=st + ("-stream" if flag else ""))
+    for flag in (False, True) for st in STAGES])
+def test_step_matches_jax(rng, stage, stream):
+    with contextlib.ExitStack() as stack:
+        if stream:      # the TPU kernel pair runs in interpret mode
+            stack.enter_context(pltpu.force_tpu_interpret_mode())
+        _check_step_matches_jax(rng, stage, stream)
+
+
+def _check_step_matches_jax(rng, stage, stream):
     jstate, jd = _jax_state(rng)
     b = _batch(rng, STAGES[stage]["batch"])
-    jcfg, tcfg = _configs(stage, jd)
+    jcfg, tcfg = _configs(stage, jd, stream)
+    if stream:
+        assert tcfg.settings.stream_train and jcfg.settings.stream_train
+        _assert_stream_clips_nothing(
+            jcfg.settings, jstate, jax.tree.map(lambda x: x[0], b["cams"]))
     bg = np.asarray([0.1, 0.2, 0.3], np.float32)
     tstate = train_state_from_jax(jstate, tcfg.dcfg, device="cpu")
     tbatch = _torch_batch(b)
