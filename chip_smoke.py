@@ -2,25 +2,34 @@
 """Smoke run of the PyTorch/CUDA port (langsplat4d_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare NAME=TREE [--compare ...] [--rounds 3]
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
+With --compare it checks nothing and only times the six kernels of this
+checkout in turns with those of other builds (see `compare_builds`).
 Phases, each failing the run on error:
   1. build the six compositor kernels from csrc/ with nvcc, one nvcc per
      source, all started together;
   2. compare the stream kernel with its plain PyTorch version on synthetic
      segments (16- and 32-px tiles, hard cutoffs on and off, empty and long
-     segments, ragged image edges), max abs error <= 3e-5;
+     segments, image edges that cut through a 16x16 quadrant, and rows that
+     are hard on the kernel's quadrant test), max abs error <= 3e-5;
   3. the render path: the bench workload (200k realistic Gaussians at
      1352x1014, the Neu3D-preset deformation at full width with seeded
      random weights, a 60-frame orbit, lang mode, fine-lang) through the
      port's render_set, counting the stream kernel's launches in that run;
   4. per-stage device times of a frame;
   5. frame 0 composited by the kernel vs the plain version, and vs what
-     render_set wrote; kernel and plain times at 32- and 16-px tiles;
-  6. the ptxas figures (registers, shared memory, spills) of the kernels;
-  7. both against their plain versions on synthetic lists (hard cutoffs on
-     and off, counts of 0, 1, full and ragged, row widths 16 and 24, 35
-     tiles): forward <= 3e-5, backward within rtol 2e-3 / atol 2e-4;
+     render_set wrote; kernel and plain times at 32- and 16-px tiles. At
+     32 px the bound charges the pairs that the quadrant scheme evaluates,
+     counted by its plain twin, whose image must be the plain version's;
+  6. the ptxas figures (registers, shared memory, spills) of the kernels
+     and the blocks an SM holds of each, reckoned from them; a spill in a
+     redesigned kernel fails;
+  7. the tile-list kernels against their plain versions on synthetic lists
+     (hard cutoffs on and off, counts of 0, 1, full and ragged, row widths
+     16, 24 and 32, 35 tiles): forward <= 3e-5, backward within rtol 2e-3 /
+     atol 2e-4;
   8. the training path: the training-step workload (100k realistic
      Gaussians at 960x536, the same deformation, 16-px tiles of capacity
      512, fine-lang, batch 1) through langsplat4d_torch.train.step:
@@ -61,9 +70,12 @@ least time the card could take for the same work), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
 """
+import argparse
 import dataclasses
+import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -93,6 +105,45 @@ KERNELS = {
     "composite_cells": ("langsplat4d_torch/csrc/composite_cells.cu",
                         "langsplat4d/ops/tile_composite.py:956"),
 }
+# the kernels in their second version, designed for the H100's SM: these
+# must not spill registers (phase 6). composite_cells, still in its first
+# version, spills 8 bytes at row width 16; the list goes when the last
+# kernel has had its second version.
+REDESIGNED = ("composite_stream", "composite_tiles_backward",
+              "composite_stream_chunks_backward")
+# One Hopper SM: 32-bit registers (handed out to a warp in units of 256, so
+# a thread's count rounds up to 8), shared memory (1 KiB of it reserved per
+# resident block), resident threads and blocks.
+SM_REGISTERS, SM_SHARED_BYTES, SM_THREADS, SM_BLOCKS = 65536, 233472, 2048, 32
+BLOCK_THREADS = 256                     # every kernel's block
+
+
+def kernel_resources(log):
+    """{row width: (registers, shared-memory bytes, spilled bytes, blocks of
+    BLOCK_THREADS threads that one SM holds at a time)} of one kernel, from
+    its build log: ptxas names each instantiation (`...ILi16E...`) before
+    its figures."""
+    found, pw = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?ILi(\d+)E", line)
+        if m:
+            pw = int(m.group(1))
+            found[pw] = [0, 0, 0]
+        if pw is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[pw][2] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[pw][0] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[pw][1] = int(smem.group(1)) if smem else 0
+    return {pw: (regs, smem, spill, min(
+        SM_REGISTERS // (-(-regs // 8) * 8 * BLOCK_THREADS),
+        SM_SHARED_BYTES // (smem + 1024), SM_THREADS // BLOCK_THREADS,
+        SM_BLOCKS)) for pw, (regs, smem, spill) in found.items() if regs}
 # Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and float32
 # operations/s outside the tensor cores (the compositors are float32 vector
 # code with one expf per pair).
@@ -173,12 +224,88 @@ def synthetic_stream(tiles_x, tiles_y, tile_size, seg_lens, generator,
     return rows, starts
 
 
+def adversarial_stream(tiles_x, tiles_y, per_tile, generator, pw=16):
+    """A (tile, depth)-ordered row stream for 32-px tiles, on the CPU, that
+    is hard on the stream kernel's quadrant test: of the `per_tile` Gaussians
+    of a tile a quarter each are
+    - rotated, strongly anisotropic splats (axes 6-30 and 0.3-1.2 px) whose
+      alpha = 1/255 contour passes within 5% of a pixel on a quadrant's edge
+      or corner (tile-local x or y in {0, 15, 16, 31});
+    - splats whose opacity is within a factor 0.9-1.5 of 1/255, so that at
+      most the pixels next to the centre blend them;
+    - splats centred 40 px outside the tile, some wide enough to reach it;
+    - `synthetic_stream`'s ordinary ones, which make pixels saturate.
+    Returns (rows [M, pw] f32, starts [T+1] int32)."""
+    tiles = tiles_x * tiles_y
+    rows, starts = synthetic_stream(tiles_x, tiles_y, 32,
+                                    [per_tile] * tiles, generator, pw=pw)
+    m = rows.shape[0]
+    tile = torch.arange(m) // per_tile
+    ox = (tile % tiles_x).float() * 32.0
+    oy = (tile // tiles_x).float() * 32.0
+
+    def u(lo, hi):
+        return torch.rand(m, generator=generator) * (hi - lo) + lo
+
+    def pick(values):
+        return torch.tensor(values)[torch.randint(len(values), (m,),
+                                                  generator=generator)]
+    kind = torch.randint(4, (m,), generator=generator)
+    # the conic of a splat with axes (sa, sb) turned by th
+    sa = torch.where(kind == 0, u(6.0, 30.0), u(0.5, 6.0))
+    sb = torch.where(kind == 0, u(0.3, 1.2), u(0.5, 6.0))
+    sa = torch.where((kind == 2) & (u(0.0, 1.0) < 0.5), u(10.0, 25.0), sa)
+    th = u(0.0, np.pi)
+    c, s_ = torch.cos(th), torch.sin(th)
+    cxx = c * c * sa * sa + s_ * s_ * sb * sb + 0.05
+    cyy = s_ * s_ * sa * sa + c * c * sb * sb + 0.05
+    cxy = c * s_ * (sa * sa - sb * sb)
+    det = cxx * cyy - cxy * cxy
+    a, b, cc = cyy / det, -cxy / det, cxx / det
+    op = torch.where(kind == 1, u(0.9, 1.5) / 255.0, u(0.05, 0.99))
+    # kind 0: the centre such that the pixel `at` lies on the level
+    # 2 ln(255 op) (1 + delta)^2 of the conic quadratic, delta within 5%
+    edge = pick([0.0, 15.0, 16.0, 31.0])
+    other = torch.where(u(0.0, 1.0) < 0.5, pick([0.0, 15.0, 16.0, 31.0]),
+                        torch.floor(u(0.0, 32.0)))
+    swap = u(0.0, 1.0) < 0.5
+    at_x = ox + torch.where(swap, edge, other)
+    at_y = oy + torch.where(swap, other, edge)
+    phi = u(0.0, 2.0 * np.pi)
+    ux, uy = torch.cos(phi), torch.sin(phi)
+    reach = torch.sqrt(2.0 * torch.log(255.0 * op)
+                       / (a * ux * ux + 2.0 * b * ux * uy + cc * uy * uy))
+    reach = reach * (1.0 + u(-0.05, 0.05))
+    cx, cy = rows[:, 0].clone(), rows[:, 1].clone()
+    cx = torch.where(kind == 0, at_x + ux * reach, cx)
+    cy = torch.where(kind == 0, at_y + uy * reach, cy)
+    # kind 2: 40 px beyond one side of the tile
+    side = torch.randint(4, (m,), generator=generator)
+    along = u(-8.0, 40.0)
+    cx = torch.where(kind == 2, ox + torch.where(
+        side == 0, torch.full_like(ox, -40.0),
+        torch.where(side == 1, torch.full_like(ox, 71.0), along)), cx)
+    cy = torch.where(kind == 2, oy + torch.where(
+        side == 2, torch.full_like(oy, -40.0),
+        torch.where(side == 3, torch.full_like(oy, 71.0), along)), cy)
+    plain = kind == 3
+    for col, val in ((0, cx), (1, cy), (2, a), (3, b), (4, cc),
+                     (5, torch.log(op))):
+        rows[:, col] = torch.where(plain, rows[:, col], val)
+    return rows, starts
+
+
 def kernel_cases():
-    """(tile_size, hard_cutoffs, height, width, pw) cases of phase 2; both
-    image edges are ragged at both tile sizes."""
-    cases = [(ts, hard, 100, 150, 16) for ts in (16, 32)
+    """(tile_size, hard_cutoffs, height, width, pw, stream) cases of phase
+    2; both image edges are ragged at both tile sizes, and at 32-px tiles
+    they cut through a quadrant. `stream` names the rows: "segments"
+    (`synthetic_stream` with `case_segments`) or "adversarial"
+    (`adversarial_stream`)."""
+    cases = [(ts, hard, 100, 150, 16, "segments") for ts in (16, 32)
              for hard in (True, False)]
-    return cases + [(16, True, 100, 150, 24)]
+    cases += [(16, True, 100, 150, 24, "segments")]
+    return cases + [(32, hard, 72, 110, pw, "adversarial")
+                    for hard, pw in ((True, 16), (False, 16), (True, 32))]
 
 
 def case_segments(tiles, generator):
@@ -191,14 +318,17 @@ def case_segments(tiles, generator):
     return seg
 
 
-def compare_case(ts, hard, h, w, pw, device, seed=0):
+def compare_case(ts, hard, h, w, pw, stream, device, seed=0):
     """Kernel and plain version on one synthetic case -> max abs error."""
     from langsplat4d_torch.ops.composite import (composite_stream,
                                                  composite_stream_plain)
     g = torch.Generator().manual_seed(seed)
     tx, ty = -(-w // ts), -(-h // ts)
-    rows, starts = synthetic_stream(tx, ty, ts, case_segments(tx * ty, g), g,
-                                    pw=pw)
+    if stream == "adversarial":
+        rows, starts = adversarial_stream(tx, ty, 300, g, pw=pw)
+    else:
+        rows, starts = synthetic_stream(tx, ty, ts,
+                                        case_segments(tx * ty, g), g, pw=pw)
     rows, starts = rows.to(device), starts.to(device)
     bg = torch.tensor([0.2, 0.5, 0.8], device=device)
     kw = dict(tiles_x=tx, tiles_y=ty, tile_size=ts, height=h, width=w,
@@ -230,7 +360,7 @@ def synthetic_lists(tiles_x, tiles_y, k_cap, counts, generator, pw=16):
 
 def list_cases():
     """(hard_cutoffs, pw) cases of phase 7."""
-    return [(True, 16), (False, 16), (True, 24)]
+    return [(True, 16), (False, 16), (True, 24), (True, 32)]
 
 
 def case_counts(tiles, k_cap, generator):
@@ -1099,7 +1229,130 @@ def time_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
+def load_build(name, tree):
+    """The `ops/composite.py` of `tree` as a module of its own, which builds
+    from that tree's csrc/ into that tree's _build/."""
+    path = os.path.join(tree, "langsplat4d_torch", "ops", "composite.py")
+    spec = importlib.util.spec_from_file_location(f"composite_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare_inputs(dev):
+    """{label: (kernel name, row width, call(composite module) -> output)}:
+    the six kernels on the inputs the main paths give them (frame 0 of the
+    bench workload as a stream at 32- and 16-px tiles and as cell lists,
+    step 1 of the training-step workload on both layouts, and the stream
+    layout's longest segment alone: one block's walk)."""
+    from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+    from langsplat4d_torch.render.pipeline import prepare_attributes
+    from langsplat4d_torch.render.raster import RasterSettings, preprocess
+    from langsplat4d_torch.render.stream import bin_cells, pack_cell_rows
+    cases = {}
+    gs, dcfg, net, aabb, views = bench_workload(dev)
+    h, w = views[0].height, views[0].width
+    with torch.no_grad():
+        grid_spatial = make_grid_spatial_cache(net, dcfg, aabb, gs.xyz)
+        for ts in (32, 16):
+            st = RasterSettings(image_height=h, image_width=w, sh_degree=3,
+                                tile_size=ts)
+            rows, starts, bg, _, _ = frame_stream(
+                st, dcfg, gs, net, aabb, views[0], grid_spatial, None)
+            kw = dict(tiles_x=st.tiles_x, tiles_y=st.tiles_y, tile_size=ts,
+                      height=h, width=w, hard_cutoffs=True)
+            cases[f"composite_stream {ts}px [{rows.shape[0]} rows]"] = (
+                "composite_stream", rows.shape[1],
+                lambda m, a=(rows, starts, bg), kw=kw:
+                m.composite_stream(*a, **kw))
+        st = RasterSettings(image_height=h, image_width=w, sh_degree=3,
+                            cell_composite=True)
+        a = prepare_attributes(dcfg, "fine-lang", views[0].time, gs, net,
+                               aabb, grid_spatial=grid_spatial)
+        prep = preprocess(st, views[0].camera_params(dev), a[0], a[3], a[1],
+                          a[2], a[4], None, active=gs.active_mask())
+        src, cell_starts = bin_cells(st, prep)
+        rows = pack_cell_rows(prep, a[5], src)
+        kw = dict(cells_x=st.cells_x, cell=st.bin_cell_tiles, tile_size=16,
+                  hard_cutoffs=True)
+        cases[f"composite_cells [{rows.shape[0]} candidates]"] = (
+            "composite_cells", rows.shape[1],
+            lambda m, a=(rows, cell_starts, torch.zeros(3, device=dev)),
+            kw=kw: m.composite_cells(*a, **kw))
+    del gs, net
+    for stream in (False, True):
+        state, cfg, batch, bg = train_workload(dev, stream=stream)
+        step = staged_step(cfg, state, batch, bg)
+        names = (("composite_stream_chunks",
+                  "composite_stream_chunks_backward") if stream
+                 else ("composite_tiles", "composite_tiles_backward"))
+        kw = dict(tiles_x=cfg.settings.tiles_x, tile_size=16,
+                  hard_cutoffs=True)
+        rows, bounds = step["rows"], step["bounds"]
+        extras = ((bg,), (step["g_out"], step["total"]))
+        for n, extra in zip(names, extras):
+            cases[f"{n} {list(rows.shape)}"] = (
+                n, rows.shape[-1], lambda m, n=n, a=(rows, bounds) + extra,
+                kw=kw: getattr(m, n)(*a, **kw))
+        if stream:
+            seg = bounds[1:] - bounds[:-1]
+            t = int(seg.argmax())
+            lo, hi = int(bounds[t]), int(bounds[t + 1])
+            alone = torch.zeros_like(bounds)
+            alone[t + 1:] = hi - lo
+            rows_t = rows[lo:hi].contiguous()
+            for n, extra in zip(names, extras):
+                cases[f"{n} [the longest segment alone, {hi - lo} rows]"] = (
+                    n, rows.shape[-1], lambda m, n=n,
+                    a=(rows_t, alone) + extra, kw=kw: getattr(m, n)(*a, **kw))
+        del state
+    return cases
+
+
+def compare_builds(specs, rounds, dev):
+    """Times the six kernels of this checkout ("this") in turns with those of
+    other builds, on one card in one process. A spec is NAME=TREE: TREE, a
+    path under this checkout, holds `langsplat4d_torch/ops/composite.py` and
+    `langsplat4d_torch/csrc/` (an unpacked `git archive` of another commit,
+    or a copy with one design step changed). The inputs are made once, with
+    this checkout's modules. Every round times every build's kernel (mean of
+    20 launches by CUDA events) in the order given and then in the reverse
+    order, so each is timed 2 * rounds times and none always follows the
+    same neighbour. Prints per kernel and build the median, least and
+    largest time, the largest difference from this checkout's output
+    relative to the output's largest entry, and the registers at that row
+    width; then the card's name and power limit. It checks nothing."""
+    builds = {"this": load_build("this", REPO)}
+    for spec in specs:
+        name, _, tree = spec.partition("=")
+        builds[name] = load_build(name, os.path.join(REPO, tree))
+    for name, mod in builds.items():
+        print(f"build {name}: build+load {mod.build_seconds():.2f} s",
+              flush=True)
+    order = list(builds) + list(builds)[::-1]
+    for label, (kernel, pw, call) in compare_inputs(dev).items():
+        ref = call(builds["this"])
+        scale = float(ref.abs().max()) or 1.0
+        times = {name: [] for name in builds}
+        for _ in range(rounds):
+            for name in order:
+                times[name].append(time_ms(lambda m=builds[name]: call(m),
+                                           20))
+        print(label, flush=True)
+        for name, mod in builds.items():
+            diff = float((call(mod) - ref).abs().max()) / scale
+            regs = kernel_resources(mod.ptxas_report(kernel))[pw][0]
+            print(f"  {name:>12}: ms {spread(times[name])}; vs this "
+                  f"{diff:.3g}; {regs} registers", flush=True)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare", action="append", default=[],
+                    metavar="NAME=TREE")
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1124,6 +1377,10 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    if args.compare:
+        compare_builds(args.compare, args.rounds, dev)
+        print(smi)
+        return 0
 
     # 1. build
     print(f"[1] build+load of {len(composite.KERNELS)} kernels, in "
@@ -1135,7 +1392,7 @@ def main():
         err = compare_case(*case, device=dev)
         errs.append(err)
         print(f"[2] ts={case[0]} hard={case[1]} {case[2]}x{case[3]} "
-              f"pw={case[4]}: max abs err {err:.3g}", flush=True)
+              f"pw={case[4]} {case[5]}: max abs err {err:.3g}", flush=True)
         if not err <= TOL:
             raise AssertionError(f"kernel vs plain {err} > {TOL}")
 
@@ -1221,26 +1478,62 @@ def main():
                 rows, starts, bg, **kw), 20)
             p_ms = time_ms(lambda: composite.composite_stream_plain(
                 rows, starts, bg, **kw), 1)
+            needed = stats
+            if ts == 2 * composite.QUAD:
+                # The plain version evaluates every row of a 32-px tile at
+                # all of its 1024 pixels. The same image, bit for bit, comes
+                # from evaluating a row only in the 16x16 quadrants that the
+                # kernel's test keeps for it, so those pairs, counted here by
+                # the plain twin of that scheme, are what the function needs:
+                # the bound charges them and not the plain version's count.
+                needed = {}
+                q_img = composite.composite_stream_quadrants_plain(
+                    rows, starts, bg, stats=needed, **kw)
+                q_err = float((q_img - ref).abs().max())
+                print(f"[5] ts={ts}: the plain version evaluates "
+                      f"{stats['pair_pixels']} pair-pixels; by quadrants the "
+                      f"kernel stages {needed['staged_rows']} of "
+                      f"{needed['quadrant_tests']} (row, quadrant) pairs "
+                      f"and evaluates {needed['pair_pixels']} pair-pixels "
+                      f"of which {needed['live_pair_pixels']} live; the "
+                      f"plain quadrant scheme vs plain max abs err "
+                      f"{q_err:.3g}", flush=True)
+                if (q_err > TOL or needed["live_pair_pixels"]
+                        != stats["live_pair_pixels"]):
+                    raise AssertionError("the quadrant scheme drops a pair "
+                                         "that blends")
             pw = rows.shape[1]
             s_bound = bound(
                 valid * pw * 4 + starts.numel() * 4 + 12 + img.numel() * 4,
-                forward_ops(stats["pair_pixels"], stats["live_pair_pixels"],
+                forward_ops(needed["pair_pixels"], needed["live_pair_pixels"],
                             3 + dcfg.lang_dim + 1))    # rgb, language, depth
             timing[ts] = (k_ms, p_ms, s_bound)
             print(f"[5] ts={ts}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
-                  f"{stats['pair_pixels']} evaluated pair-pixels of which "
-                  f"{stats['live_pair_pixels']} live, bound "
+                  f"{needed['pair_pixels']} pair-pixels to evaluate of which "
+                  f"{needed['live_pair_pixels']} live, bound "
                   f"{s_bound[0]:.4f} ms by {s_bound[1]} ({s_bound[2]}): "
                   f"kernel / bound {k_ms / s_bound[0]:.2f}", flush=True)
     shutil.rmtree(out_root, ignore_errors=True)
     del gs, net, views, rows, starts, img, ref
     torch.cuda.empty_cache()
 
-    # 6. the kernels' resources, one line pair per row width 32, 24, 16
+    # 6. the kernels' resources, one line pair per row width 32, 24, 16,
+    # and the blocks an SM holds of each; no spills in the redesigned
+    # kernels
     for name in composite.KERNELS:
-        for line in composite.ptxas_report(name).splitlines():
+        log = composite.ptxas_report(name)
+        for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[6] {name}: {line.strip()}", flush=True)
+        res = kernel_resources(log)
+        if sorted(res) != sorted(composite.SUPPORTED_ROW_WIDTHS):
+            raise AssertionError(f"{name}: no ptxas figures for row widths "
+                                 f"{composite.SUPPORTED_ROW_WIDTHS}")
+        print(f"[6] {name}: resident blocks per SM at row widths "
+              + ", ".join(f"{pw}: {res[pw][3]}" for pw in sorted(res)),
+              flush=True)
+        if name in REDESIGNED and any(r[2] for r in res.values()):
+            raise AssertionError(f"{name} spills registers")
 
     # 7. the tile-list kernels vs plain on synthetic lists
     for hard, pw in list_cases():

@@ -1,6 +1,8 @@
 // What the six Hopper compositors share: the packed-row constants, the
 // shared-memory row staging, the power chain, the forward's per-pixel blend
-// and the backward's walk over one 16x16 tile's rows.
+// (the stream kernel has its own staging and blend in composite_stream.cu)
+// and the backward's walk over one 16x16 tile's rows with its transposed
+// warp reduction.
 //
 // Row layout (PW floats): [pix_x, pix_y, conic0, conic1, conic2, ln_op, 0, 0,
 // feat_0 .. feat_{PW-9}] -- the JAX package's kernel rows, row-major.
@@ -26,6 +28,12 @@ constexpr int HDR = 8;       // header columns before the feature block
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float T_EPS = 1e-4f;
 constexpr float MAX_ALPHA = 0.99f;
+constexpr float LN_ALPHA_MIN = -5.5412635f;   // ln(1/255)
+// With hard cutoffs the redesigned kernels skip the expf of a pair whose
+// power + ln_op is below ln(1/255) - PRETEST_MARGIN: e^-0.001 is 4000 ulps
+// below 1 and expf is good to a few, so alpha < 1/255 there for certain;
+// the exact test on the expf result decides every other pair.
+constexpr float PRETEST_MARGIN = 1e-3f;
 
 // Tile-local pixel coordinates and their products.
 struct PixelBasis {
@@ -78,15 +86,24 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src,
 // alpha = min(0.99, expf(power + k[6])), skipped with hard cutoffs where
 // alpha < 1/255. (The three lines of that rule are written out where they
 // are used: returning alpha through a helper cost the forward kernels 13%.)
+// The chain is written here and nowhere else: ka = [k0 k1 k2 k3], kb =
+// [k4 k5 . .]; the pointer form below reads the same six from s_coef.
+__device__ __forceinline__ float gaussian_power(const float4& ka,
+                                                const float4& kb,
+                                                const PixelBasis& p) {
+  float power = ka.x;
+  power = fmaf(ka.y, p.x, power);
+  power = fmaf(ka.z, p.y, power);
+  power = fmaf(ka.w, p.xx, power);
+  power = fmaf(kb.x, p.yy, power);
+  power = fmaf(kb.y, p.xy, power);
+  return power;
+}
+
 __device__ __forceinline__ float gaussian_power(const float* k,
                                                 const PixelBasis& p) {
-  float power = k[0];
-  power = fmaf(k[1], p.x, power);
-  power = fmaf(k[2], p.y, power);
-  power = fmaf(k[3], p.xx, power);
-  power = fmaf(k[4], p.yy, power);
-  power = fmaf(k[5], p.xy, power);
-  return power;
+  return gaussian_power(make_float4(k[0], k[1], k[2], k[3]),
+                        make_float4(k[4], k[5], 0.0f, 0.0f), p);
 }
 
 // One pixel blends the `nb` staged Gaussians front to back into (T, acc,
@@ -123,12 +140,114 @@ __device__ __forceinline__ void blend_staged(const float* s_rows,
 constexpr int BWD_TILE = 16;                 // the backward takes 16-px tiles
 constexpr int BWD_PX = BWD_TILE * BWD_TILE;  // one thread per pixel
 constexpr int BWD_WARPS = BWD_PX / 32;
-constexpr int BWD_BATCH = 32;                // rows staged per pass
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The pixel of the 16x16 tile that thread `tid` of the backward's block
+// owns: a warp is an 8x4 patch (the block's 8 warps 2 across and 4 down),
+// so that a Gaussian reaches fewer warps, and a warp's pixels stop together
+// more often, than with a warp as a 16x2 strip.
+__device__ __forceinline__ int backward_pixel(int tid) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  return ((warp >> 1) * 4 + (lane >> 3)) * BWD_TILE + (warp & 1) * 8 +
+         (lane & 7);
+}
+
+// One step of the transposed reduction: a lane keeps the half of its 2 HALF
+// terms that its bit HALF of the lane number names, hands the other half to
+// the lane at distance HALF and adds what that lane hands over; then the
+// same on the kept half. The halves are chosen with selects on registers,
+// never by a dynamic index.
+template <int HALF>
+__device__ __forceinline__ void exchange_halves(float* v, int lane) {
+  const bool upper = (lane & HALF) != 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < HALF; ++i) {
+    const float keep = upper ? v[HALF + i] : v[i];
+    const float send = upper ? v[i] : v[HALF + i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+  }
+  if constexpr (HALF > 1) exchange_halves<HALF / 2>(v, lane);
+}
+
+// Sums N (16 or 32) terms per lane over the 32 lanes of a warp, all
+// together: lane l returns the sum over the lanes of term l (l mod 16 for
+// N = 16). N - 1 shuffles at N = 32 and N at 16 (the last one adds the two
+// half-warps), where one butterfly per term would take 5 N; the order of
+// every sum is fixed. `v` is used up.
+template <int N>
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[N], int lane) {
+  static_assert(N == 16 || N == 32, "16 or 32 terms a lane");
+  exchange_halves<N / 2>(v, lane);
+  if constexpr (N == 16) v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+  return v[0];
+}
+
+// One pixel's step of the backward walk over one staged Gaussian
+// (coefficients k, features f): advances the pixel's T, prefix and done as
+// the forward does and gives da = dL/dpower and w = alpha T of this pair,
+// both zero where the Gaussian is skipped or the pixel has stopped.
+template <int PW>
+__device__ __forceinline__ void pixel_gradient(
+    const float* k, const float* f, const PixelBasis& basis,
+    const float (&gf)[PW - HDR], float g_alpha, float total, int hard,
+    float* T, float* prefix, bool* done, float* da, float* w) {
+  constexpr int C = PW - HDR;
+  *da = 0.0f;
+  *w = 0.0f;
+  const float4 ka = reinterpret_cast<const float4*>(k)[0];
+  const float4 kb = reinterpret_cast<const float4*>(k)[1];
+  float power = gaussian_power(ka, kb, basis);
+  if (*done) power = 1.0f;
+  const float ln_op = kb.z;
+  if (power > 0.0f) return;
+  if (hard && power + ln_op < LN_ALPHA_MIN - PRETEST_MARGIN) return;
+  const float alpha_raw = expf(power + ln_op);
+  const float alpha = fminf(MAX_ALPHA, alpha_raw);
+  if (hard && alpha < ALPHA_MIN) return;
+  const float test_T = *T * (1.0f - alpha);
+  if (hard && test_T < T_EPS) {
+    *done = true;
+    return;
+  }
+  *w = alpha * *T;
+  float phi = 0.0f;
+#pragma unroll
+  for (int c4 = 0; c4 < C / 4; ++c4) {
+    const float4 v = reinterpret_cast<const float4*>(f)[c4];
+    phi = phi + v.x * gf[4 * c4 + 0];
+    phi = phi + v.y * gf[4 * c4 + 1];
+    phi = phi + v.z * gf[4 * c4 + 2];
+    phi = phi + v.w * gf[4 * c4 + 3];
+  }
+  phi = phi + g_alpha;
+  *prefix = *prefix + *w * phi;
+  const float S = total - *prefix;
+  if (alpha_raw < MAX_ALPHA) {
+    // S times the approximate reciprocal (2 ulps, no slow path), where the
+    // plain version divides
+    *da = (*T * phi - __fdividef(S, fmaxf(1.0f - alpha, 1e-6f))) * alpha;
+  }
+  *T = test_T;
+}
+
+// The N terms (6 + C of them, then zeros) whose sums over the tile's pixels
+// make a Gaussian's gradient row: da times the pixel basis, w times the
+// feature cotangents.
+template <int C, int N>
+__device__ __forceinline__ void gradient_terms(float da, float w,
+                                               const PixelBasis& basis,
+                                               const float (&gf)[C],
+                                               float (&v)[N]) {
+  v[0] = da;
+  v[1] = da * basis.x;
+  v[2] = da * basis.y;
+  v[3] = da * basis.xx;
+  v[4] = da * basis.yy;
+  v[5] = da * basis.xy;
+#pragma unroll
+  for (int c = 0; c < C; ++c) v[6 + c] = w * gf[c];
+#pragma unroll
+  for (int i = 6 + C; i < N; ++i) v[i] = 0.0f;
 }
 
 // One block of 256 threads re-walks the `count` front-to-back rows at `src`
@@ -136,7 +255,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // one gradient row per row to `dst`: [dmx, dmy, dc0, dc1, dc2, d_op, 0, 0,
 // d_feat_0 ..]; rows [walked, zero_to) of `dst`, which the block did not
 // reach, are zeroed. `g` points at this pixel's entry of the tile's
-// cotangent [C + 1, 256]; `total` is <accum, g> of this pixel.
+// cotangent [C + 1, 256]; `total` is <accum, g> of this pixel. `src` and
+// `dst` are 16-byte aligned.
 //
 // Per pixel and Gaussian i (w_i = alpha_i T_i, T_{i+1} = T_i (1 - alpha_i)):
 //   phi_i    = sum_c f_{i,c} g_c + g_alpha
@@ -147,13 +267,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 //   da       = d_alpha * alpha_i                    (= dL/dpower = dL/dln_op)
 // and per Gaussian the sums over the tile's 256 pixels of da * basis[0..5]
 // (the gradient of the six power coefficients; basis[0] = 1 gives d_ln_op)
-// and of w_i g_c (the feature gradient). The 6 + C sums are reduced inside
-// each warp with shuffles (a warp none of whose pixels the Gaussian reaches
-// skips them), the 8 warps' partials go to shared memory, and after the
-// batch thread j adds them in warp order, chains the coefficient gradients
-// to (centre, conic, opacity) and writes row j. Pixels that have stopped
-// keep taking part with zeros; the block leaves when all its pixels are
-// done or `count` is reached.
+// and of w_i g_c (the feature gradient).
+//
+// A thread owns a pixel of an 8x4 patch per warp (`backward_pixel`). Rows
+// are staged 64 or 32 at a time: whole rows with 16-byte loads while thread
+// j turns row j's header, read from global memory, into its coefficients
+// (one barrier). The V = 6 + C sums of a Gaussian are reduced across a warp
+// together (`warp_transpose_sum`), after which lane v holds sum v and the
+// warp's partials go to shared memory with one store; a warp none of whose
+// pixels the Gaussian reaches notes that in a bit mask instead, and a warp
+// all of whose pixels have stopped skips the batch's Gaussians altogether.
+// After the batch all 256 threads add the warps' partials in warp order,
+// each thread one sum of one Gaussian, and then each thread chains 16 bytes
+// of a gradient row to (centre, conic, opacity) and stores them, so the rows
+// leave as whole coalesced lines. The order of every sum is fixed: the
+// kernel is deterministic. The block leaves when all its pixels are done or
+// `count` is reached.
 template <int PW>
 __device__ __forceinline__ void backward_walk(const float* __restrict__ src,
                                               int count, int zero_to,
@@ -163,16 +292,24 @@ __device__ __forceinline__ void backward_walk(const float* __restrict__ src,
                                               float* __restrict__ dst,
                                               int hard) {
   constexpr int C = PW - HDR;
-  constexpr int V = 6 + C;     // sums per Gaussian
-  constexpr int VP = V | 1;    // odd stride: thread j reads without conflicts
-  __shared__ float s_rows[BWD_BATCH * PW];
-  __shared__ float s_coef[BWD_BATCH * 8];
-  __shared__ float s_part[BWD_WARPS * BWD_BATCH * VP];
+  constexpr int V = 6 + C;               // sums per Gaussian
+  constexpr int N = V <= 16 ? 16 : 32;   // terms a lane, padded with zeros
+  constexpr int ROW4 = PW / 4;           // 16-byte pieces of a row
+  // rows staged per pass: 64 where the warps' partials of a batch leave
+  // room in 48 KB of static shared memory (row width 16), else 32
+  constexpr int BATCH = V <= 16 ? 64 : 32;
+  using Mask = unsigned long long;       // a bit per row of a batch
+  __shared__ __align__(16) float s_rows[BATCH * PW];
+  __shared__ __align__(16) float s_coef[BATCH * 8];
+  __shared__ float s_part[BWD_WARPS * BATCH * V];
+  __shared__ float s_sum[BATCH * V];
+  __shared__ Mask s_mask[BWD_WARPS];       // bit j: the warp has partials of j
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const PixelBasis basis(tid % BWD_TILE, tid / BWD_TILE);
+  const int pixel = backward_pixel(tid);
+  const PixelBasis basis(pixel % BWD_TILE, pixel / BWD_TILE);
 
   float gf[C];
 #pragma unroll
@@ -184,8 +321,8 @@ __device__ __forceinline__ void backward_walk(const float* __restrict__ src,
   bool done = false;
   int walked = 0;
 
-  for (int b0 = 0; b0 < count; b0 += BWD_BATCH) {
-    const int nb = min(BWD_BATCH, count - b0);
+  for (int b0 = 0; b0 < count; b0 += BATCH) {
+    const int nb = min(BATCH, count - b0);
     // barrier before the shared buffers are overwritten; with hard cutoffs
     // it also counts the pixels still blending
     if (hard) {
@@ -193,98 +330,86 @@ __device__ __forceinline__ void backward_walk(const float* __restrict__ src,
     } else {
       __syncthreads();
     }
-    stage_rows<PW>(src + static_cast<size_t>(b0) * PW, nb, ox, oy, s_rows,
-                   s_coef, tid, BWD_PX);
-
-    for (int j = 0; j < nb; ++j) {
-      float da = 0.0f;
-      float w = 0.0f;
-      const float* k = s_coef + j * 8;
-      const float power = done ? 1.0f : gaussian_power(k, basis);
-      if (!(power > 0.0f)) {
-        const float alpha_raw = expf(power + k[6]);
-        const float alpha = fminf(MAX_ALPHA, alpha_raw);
-        if (!(hard && alpha < ALPHA_MIN)) {
-          const float test_T = T * (1.0f - alpha);
-          if (hard && test_T < T_EPS) {
-            done = true;
-          } else {
-            w = alpha * T;
-            const float* f = s_rows + j * PW + HDR;
-            float phi = 0.0f;
-#pragma unroll
-            for (int c = 0; c < C; ++c) phi = phi + f[c] * gf[c];
-            phi = phi + g_alpha;
-            prefix = prefix + w * phi;
-            const float S = total - prefix;
-            if (alpha_raw < MAX_ALPHA) {
-              da = (T * phi - S / fmaxf(1.0f - alpha, 1e-6f)) * alpha;
-            }
-            T = test_T;
-          }
-        }
-      }
-      float* part = s_part + (warp * BWD_BATCH + j) * VP;
-      if (!__any_sync(0xffffffffu, w != 0.0f || da != 0.0f)) {
-        if (lane < V) part[lane] = 0.0f;
-        continue;
-      }
-      const float s0 = warp_sum(da);
-      const float s1 = warp_sum(da * basis.x);
-      const float s2 = warp_sum(da * basis.y);
-      const float s3 = warp_sum(da * basis.xx);
-      const float s4 = warp_sum(da * basis.yy);
-      const float s5 = warp_sum(da * basis.xy);
-      if (lane == 0) {
-        part[0] = s0;
-        part[1] = s1;
-        part[2] = s2;
-        part[3] = s3;
-        part[4] = s4;
-        part[5] = s5;
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float s = warp_sum(w * gf[c]);
-        if (lane == 0) part[6 + c] = s;
-      }
+    // whole rows with 16-byte loads; meanwhile thread j turns row j's
+    // header, read from global memory, into its coefficients
+    const float4* src4 = reinterpret_cast<const float4*>(
+        src + static_cast<size_t>(b0) * PW);
+    for (int i = tid; i < nb * ROW4; i += BWD_PX) {
+      reinterpret_cast<float4*>(s_rows)[i] = src4[i];
+    }
+    if (tid < nb) {
+      const float4 h0 = src4[tid * ROW4];
+      const float4 h1 = src4[tid * ROW4 + 1];
+      const float r[6] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y};
+      row_coefficients(r, ox, oy, s_coef + tid * 8);
     }
     __syncthreads();
 
-    // thread j adds the warps' partials of Gaussian j and chains the
-    // coefficient gradients to (centre, conic, opacity)
-    if (tid < nb) {
-      float d[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) d[v] = 0.0f;
-      for (int wp = 0; wp < BWD_WARPS; ++wp) {
-        const float* part = s_part + (wp * BWD_BATCH + tid) * VP;
-#pragma unroll
-        for (int v = 0; v < V; ++v) d[v] = d[v] + part[v];
+    Mask touched = 0;
+    if (__any_sync(0xffffffffu, !done)) {
+      for (int j = 0; j < nb; ++j) {
+        float da, w;
+        pixel_gradient<PW>(s_coef + j * 8, s_rows + j * PW + HDR, basis, gf,
+                           g_alpha, total, hard, &T, &prefix, &done, &da, &w);
+        if (!__any_sync(0xffffffffu, w != 0.0f || da != 0.0f)) continue;
+        touched |= Mask(1) << j;
+        float v[N];
+        gradient_terms<C, N>(da, w, basis, gf, v);
+        const float sum = warp_transpose_sum<N>(v, lane);
+        if (lane < V) s_part[(warp * BATCH + j) * V + lane] = sum;
       }
-      const float* r = s_rows + tid * PW;
-      const float mx = r[0] - ox;
-      const float my = r[1] - oy;
-      const float c0 = r[2], c1 = r[3], c2 = r[4], ln_op = r[5];
-      float* o = dst + static_cast<size_t>(b0 + tid) * PW;
-      o[0] = (-c0 * mx - c1 * my) * d[0] + c0 * d[1] + c1 * d[2];
-      o[1] = (-c2 * my - c1 * mx) * d[0] + c1 * d[1] + c2 * d[2];
-      o[2] = -0.5f * mx * mx * d[0] + mx * d[1] - 0.5f * d[3];
-      o[3] = -mx * my * d[0] + my * d[1] + mx * d[2] - d[5];
-      o[4] = -0.5f * my * my * d[0] + my * d[2] - 0.5f * d[4];
-      // d_op = d_ln_op / op; the padded slots' sentinel ln_op is guarded
-      o[5] = ln_op > -1e29f ? d[0] * expf(-ln_op) : 0.0f;
-      o[6] = 0.0f;
-      o[7] = 0.0f;
+    }
+    if (lane == 0) s_mask[warp] = touched;
+    __syncthreads();
+
+    // every thread: one sum of one Gaussian over the warps that have it
+    for (int e = tid; e < nb * V; e += BWD_PX) {
+      const int j = e / V;
+      float d = 0.0f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) o[HDR + c] = d[6 + c];
+      for (int wp = 0; wp < BWD_WARPS; ++wp) {
+        if ((s_mask[wp] >> j) & 1) d = d + s_part[wp * BATCH * V + e];
+      }
+      s_sum[e] = d;
+    }
+    __syncthreads();
+    // every thread: 16 bytes of a gradient row, chained to (centre, conic,
+    // opacity)
+    for (int t = tid; t < nb * ROW4; t += BWD_PX) {
+      const int j = t / ROW4;
+      const int piece = t % ROW4;
+      const float* d = s_sum + j * V;
+      float4 o;
+      if (piece < 2) {
+        const float* r = s_rows + j * PW;
+        const float mx = r[0] - ox;
+        const float my = r[1] - oy;
+        const float c0 = r[2], c1 = r[3], c2 = r[4], ln_op = r[5];
+        if (piece == 0) {
+          o.x = (-c0 * mx - c1 * my) * d[0] + c0 * d[1] + c1 * d[2];
+          o.y = (-c2 * my - c1 * mx) * d[0] + c1 * d[1] + c2 * d[2];
+          o.z = -0.5f * mx * mx * d[0] + mx * d[1] - 0.5f * d[3];
+          o.w = -mx * my * d[0] + my * d[1] + mx * d[2] - d[5];
+        } else {
+          o.x = -0.5f * my * my * d[0] + my * d[2] - 0.5f * d[4];
+          // d_op = d_ln_op / op; the padded slots' sentinel ln_op is guarded
+          o.y = ln_op > -1e29f ? d[0] * expf(-ln_op) : 0.0f;
+          o.z = 0.0f;
+          o.w = 0.0f;
+        }
+      } else {
+        const float* df = d + 6 + 4 * (piece - 2);
+        o = make_float4(df[0], df[1], df[2], df[3]);
+      }
+      reinterpret_cast<float4*>(dst + static_cast<size_t>(b0) * PW)[t] = o;
     }
     walked = b0 + nb;
   }
 
-  for (size_t i = static_cast<size_t>(walked) * PW + tid;
-       i < static_cast<size_t>(zero_to) * PW; i += BWD_PX) {
-    dst[i] = 0.0f;
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (size_t i = static_cast<size_t>(walked) * ROW4 + tid;
+       i < static_cast<size_t>(zero_to) * ROW4; i += BWD_PX) {
+    dst4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 

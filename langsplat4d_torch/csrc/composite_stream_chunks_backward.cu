@@ -18,19 +18,38 @@
 // whatever the alignment, and T and the prefix are registers of the pixel's
 // thread over the whole segment.
 //
-// Design: one block per 16x16 tile, one thread per pixel; the walk, with its
-// warp-shuffle reductions and fixed sum order, is `backward_walk` of
-// composite_common.cuh, which the tile-list backward shares. d_rows comes
-// uninitialised: a block that leaves early (all its pixels stopped) zeroes
-// the rest of its segment, and an empty segment writes nothing. Row offsets
-// are 64-bit: a segment has no capacity.
+// What bounded the first version on this card: the shape of its walk, not
+// the arithmetic or the bytes. It reduced each of a Gaussian's 6 + C sums
+// with a butterfly of its own (70 shuffles and 70 adds per warp and
+// Gaussian at row width 16, a sixth of its time when measured), wrote a
+// warp's zero partials for every Gaussian that none of its pixels reached,
+// let warps whose pixels had all stopped walk on, and after every 32 rows
+// left the sums over the warps and the row's 64 bytes to 32 of its 256
+// threads.
 //
-// What bounds it: arithmetic and shuffles, as the tile-list backward: a
-// (Gaussian, pixel) pair costs the forward's work plus ~6 + 2C operations
-// and 5 (6 + C) shuffle-adds, against one row read and one row written per
-// slot shared by 256 pixels. The stream holds only the pairs that the
-// ellipse cull left, so fewer of them are skipped after their alpha than in
-// the lists.
+// Design: one block per 16x16 tile, one thread per pixel; the walk is
+// `backward_walk` of composite_common.cuh, which the tile-list backward
+// shares. There a Gaussian's sums cross the warp together in one
+// transposed exchange (16 shuffles for 70; 31 for 110 and 150 at row
+// widths 24 and 32), untouched (warp, Gaussian) pairs are a bit in a mask,
+// a warp is an 8x4 patch of pixels so that fewer warps are touched, stopped
+// warps skip the batch, the expf of a pair far below the alpha cutoff is
+// skipped, S / (1 - alpha) is a multiply by the approximate reciprocal,
+// coefficients and features are 16-byte loads, rows are staged 64 at a time
+// (row width 16) with one barrier, and all 256 threads add the warps'
+// partials and store the rows as whole lines. The order of every sum is
+// fixed. d_rows comes uninitialised:
+// a block that leaves early (all its pixels stopped) zeroes the rest of its
+// segment, and an empty segment writes nothing. Row offsets are 64-bit: a
+// segment has no capacity.
+//
+// What bounds it now: the latency of the walk. A pixel's T, prefix, expf
+// and division and the five shuffle stages of a Gaussian's reduction are one
+// dependent chain per warp, the warps of a tile reach a Gaussian unevenly
+// (about half of them at all, on the training-step workload), and a slot of
+// a long segment is walked by the few pixels that have not stopped. The
+// stream holds only the pairs that the ellipse cull left, so fewer of them
+// are skipped after their alpha than in the lists.
 
 #include "composite_common.cuh"
 
@@ -38,8 +57,11 @@ namespace {
 
 using namespace ls4d;
 
+// At row width 16 ptxas is held to the 64 registers that let an SM hold four
+// blocks (left alone it takes 71 for the stream layout's kernel, and the SM
+// holds three); the wider rows need more registers than that.
 template <int PW>
-__global__ void __launch_bounds__(BWD_PX)
+__global__ void __launch_bounds__(BWD_PX, PW == 16 ? 4 : 1)
 composite_stream_chunks_backward_kernel(const float* __restrict__ rows,
                                         const int* __restrict__ starts,
                                         const float* __restrict__ g_out,
@@ -56,8 +78,9 @@ composite_stream_chunks_backward_kernel(const float* __restrict__ rows,
       rows + first, count, count,
       static_cast<float>((tile % tiles_x) * BWD_TILE),
       static_cast<float>((tile / tiles_x) * BWD_TILE),
-      g_out + static_cast<size_t>(tile) * (C + 1) * BWD_PX + tid,
-      total_in[static_cast<size_t>(tile) * BWD_PX + tid], d_rows + first,
+      g_out + static_cast<size_t>(tile) * (C + 1) * BWD_PX +
+          backward_pixel(tid),
+      total_in[static_cast<size_t>(tile) * BWD_PX + backward_pixel(tid)], d_rows + first,
       hard);
 }
 

@@ -8,19 +8,24 @@
 // row, so there are no global atomics; the caller scatter-adds the rows to
 // the Gaussians.
 //
-// Design: one block per 16x16 tile, one thread per pixel, rows [T, K, PW]
-// staged 32 at a time. The walk itself, with its warp-shuffle reductions and
-// fixed sum order, is `backward_walk` of composite_common.cuh, which the
-// stream layout's backward shares; this kernel gives it the tile's padded
-// list and has it zero the slots [walked, K) that it did not reach. The
-// power chain and the cutoffs are the forward's, so both agree on which
-// entries are in.
+// What bounded the first version on this card: the shape of its walk (see
+// composite_stream_chunks_backward.cu, which shares it): a butterfly per
+// sum, 70 shuffles per warp and Gaussian, zero partials for unreached
+// Gaussians and a 32-thread epilogue every 32 rows.
 //
-// What bounds it: arithmetic and shuffles. A (Gaussian, pixel) pair costs
-// the forward's work plus ~6 + 2C operations and 5 (6 + C) shuffle-adds,
-// against one row read and one row written per Gaussian shared by 256
-// pixels. The sums' order differs from the plain version's, so the two are
-// not bit-equal.
+// Design: one block per 16x16 tile, one thread per pixel, rows [T, K, PW]
+// staged 64 at a time (32 at row widths 24 and 32). The walk itself is
+// `backward_walk` of composite_common.cuh: one transposed warp exchange for
+// a Gaussian's 6 + C sums, a bit mask for the (warp, Gaussian) pairs with
+// nothing to add, 8x4-pixel warps, the sums over the warps and the row
+// stores on all 256 threads, every sum in a fixed order. This kernel gives it the tile's padded list and has
+// it zero the slots [walked, K) that it did not reach. The power chain and
+// the cutoffs are the forward's, so both agree on which entries are in.
+//
+// What bounds it now: the latency of the walk's dependent chain per warp
+// (T, prefix, expf, a division, five shuffle stages), and 67 MB of gradient
+// rows of which most are the zeros of unreached slots. The sums' order
+// differs from the plain version's, so the two are not bit-equal.
 
 #include "composite_common.cuh"
 
@@ -28,8 +33,11 @@ namespace {
 
 using namespace ls4d;
 
+// At row width 16 ptxas is held to the 64 registers that let an SM hold four
+// blocks (left alone it takes 71 for the stream layout's kernel, and the SM
+// holds three); the wider rows need more registers than that.
 template <int PW>
-__global__ void __launch_bounds__(BWD_PX)
+__global__ void __launch_bounds__(BWD_PX, PW == 16 ? 4 : 1)
 composite_tiles_backward_kernel(const float* __restrict__ rows,
                                 const int* __restrict__ counts,
                                 const float* __restrict__ g_out,
@@ -44,8 +52,9 @@ composite_tiles_backward_kernel(const float* __restrict__ rows,
       rows + first, min(counts[tile], K), K,
       static_cast<float>((tile % tiles_x) * BWD_TILE),
       static_cast<float>((tile / tiles_x) * BWD_TILE),
-      g_out + static_cast<size_t>(tile) * (C + 1) * BWD_PX + tid,
-      total_in[static_cast<size_t>(tile) * BWD_PX + tid], d_rows + first,
+      g_out + static_cast<size_t>(tile) * (C + 1) * BWD_PX +
+          backward_pixel(tid),
+      total_in[static_cast<size_t>(tile) * BWD_PX + backward_pixel(tid)], d_rows + first,
       hard);
 }
 

@@ -55,8 +55,16 @@ in the same order: the kernels use fmaf for the chain and are built with
 --fmad=false so that nothing else fuses; the plain versions form each fused
 multiply-add from an exact float64 product. So they agree bit for bit unless
 the device's expf differs from PyTorch's. The backward kernels sum over a
-tile's pixels in another order than their plain versions (warp shuffles), so
-those agree to rounding only.
+tile's pixels in another order than their plain versions (warp shuffles) and
+multiply by an approximate reciprocal where those divide by 1 - alpha, so
+they agree to rounding only.
+
+Two pieces of the kernels' logic have plain twins here for the CPU tests:
+`quadrant_cover_plain` (the stream kernel composites a 32-px tile as four
+16x16 quadrants, each staging only the rows the test keeps for it; with
+`composite_stream_quadrants_plain`, the whole scheme) and
+`warp_transpose_sum_plain` (the lane schedule of the backward kernels' warp
+reduction).
 """
 from __future__ import annotations
 
@@ -216,6 +224,7 @@ def composite_stream(rows: torch.Tensor, starts: torch.Tensor,
     if rows.device.type != "cuda":
         raise ValueError(f"composite_stream: no kernel for {rows.device}")
     _check_cuda_args(rows, starts, bg, tiles_x * tiles_y, tile_size)
+    _check_aligned(rows=rows)
     pw = rows.shape[1]
     out = torch.empty((pw - HDR + 1, height, width), dtype=torch.float32,
                       device=rows.device)
@@ -234,6 +243,14 @@ def _check_on_device(device, **tensors):
     for name, t in tensors.items():
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {device}")
+
+
+def _check_aligned(**tensors):
+    """The stream kernel and the backward kernels move rows 16 bytes at a
+    time."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check_cuda_args(rows, starts, bg, num_tiles, tile_size):
@@ -323,6 +340,7 @@ def composite_tiles_backward(rows: torch.Tensor, counts: torch.Tensor,
             raise ValueError(f"{name} must be {list(shape)} float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     _check_on_device(rows.device, g_out=g_out, total=total)
+    _check_aligned(rows=rows)
     d_rows = torch.empty_like(rows)
     _launch("composite_tiles_backward", rows.device, rows.data_ptr(),
             counts.data_ptr(), g_out.data_ptr(), total.data_ptr(),
@@ -416,6 +434,7 @@ def composite_stream_chunks_backward(rows: torch.Tensor,
             raise ValueError(f"{name} must be {list(shape)} float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
     _check_on_device(rows.device, g_out=g_out, total=total)
+    _check_aligned(rows=rows)
     d_rows = torch.empty_like(rows)
     _launch("composite_stream_chunks_backward", rows.device, rows.data_ptr(),
             starts.data_ptr(), g_out.data_ptr(), total.data_ptr(),
@@ -469,14 +488,18 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 class _TileGrid:
     """Tile origins [T, 1] and the tile-local pixel basis [px] of the
-    tiles at (tx[t], ty[t]) of the tile grid."""
+    tiles at (tx[t], ty[t]) of the tile grid; with `side`, only the window
+    of side x side pixels whose first pixel is tile-local (x0, y0)."""
 
-    def __init__(self, tx: torch.Tensor, ty: torch.Tensor, ts: int):
+    def __init__(self, tx: torch.Tensor, ty: torch.Tensor, ts: int,
+                 side: Optional[int] = None, x0: int = 0, y0: int = 0):
         dev = tx.device
+        side = side or ts
         self.ox = (tx * ts).float()[:, None]
         self.oy = (ty * ts).float()[:, None]
-        self.lx = torch.arange(ts, device=dev).repeat(ts).float()
-        self.ly = torch.arange(ts, device=dev).repeat_interleave(ts).float()
+        self.lx = (torch.arange(side, device=dev) + x0).repeat(side).float()
+        self.ly = (torch.arange(side, device=dev) + y0).repeat_interleave(
+            side).float()
         self.xx, self.yy, self.xy = (self.lx * self.lx, self.ly * self.ly,
                                      self.lx * self.ly)
 
@@ -614,6 +637,145 @@ def composite_stream_plain(rows: torch.Tensor, starts: torch.Tensor,
     img = img.permute(2, 0, 3, 1, 4).reshape(c_out, tiles_y * ts,
                                              tiles_x * ts)
     return img[:, :height, :width].contiguous()
+
+
+QUAD = 16                      # the stream kernel's block: a 16x16 quadrant
+LN_ALPHA_MIN = -5.5412635      # ln(1/255)
+COVER_MARGIN_ABS = 1e-2
+COVER_MARGIN_REL = 4e-6
+
+
+def quadrant_cover_plain(rows: torch.Tensor, ox: torch.Tensor,
+                         oy: torch.Tensor, hard_cutoffs: bool = True
+                         ) -> torch.Tensor:
+    """The stream kernel's quadrant test (`quadrant_covered` in
+    csrc/composite_stream.cu) in plain PyTorch: rows [M, PW] of 32-px tiles
+    with origins ox, oy [M] -> keep [M, 4] bool, quadrant q = 2 qy + qx
+    being the 16x16 pixels from tile-local (16 qx, 16 qy).
+
+    A row is dropped for a quadrant only if every pixel of the quadrant
+    would skip it under hard cutoffs (alpha < 1/255): the least value over
+    the quadrant's pixel rect of the conic quadratic q (power = -q / 2; on
+    an edge of the rect unless the centre is inside) leaves power + ln_op
+    below ln(1/255) by more than a margin, COVER_MARGIN_ABS plus
+    COVER_MARGIN_REL times the magnitude of the terms that the blend's
+    coefficient form sums the power from (its ~12 roundings, 6e-8 each, are
+    relative to that). A conic that is not positive definite is kept;
+    without hard cutoffs every pixel blends every row, so all are kept."""
+    m = rows.shape[0]
+    keep = torch.ones((m, 4), dtype=torch.bool, device=rows.device)
+    if not hard_cutoffs:
+        return keep
+    cx, cy, a, b, c, ln_op = (rows[:, i] for i in range(6))
+    ox = torch.as_tensor(ox, dtype=torch.float32, device=rows.device)
+    oy = torch.as_tensor(oy, dtype=torch.float32, device=rows.device)
+    span = float(2 * QUAD)
+    dx = (cx - ox).abs() + span
+    dy = (cy - oy).abs() + span
+    mag = 0.5 * (a * dx * dx + c * dy * dy) + b.abs() * dx * dy
+    limit = 2.0 * (ln_op - LN_ALPHA_MIN
+                   + (COVER_MARGIN_ABS + COVER_MARGIN_REL * mag))
+    definite = (a > 0) & (c > 0) & (a * c > b * b)
+
+    def edge_min(a, b, c, d, lo, hi, centre):
+        at = centre - b * d / c
+        e = torch.minimum(torch.maximum(at, lo), hi) - centre
+        return a * d * d + 2.0 * b * d * e + c * e * e
+
+    for q in range(4):
+        x0 = ox + float(QUAD * (q % 2))
+        y0 = oy + float(QUAD * (q // 2))
+        x1, y1 = x0 + (QUAD - 1.0), y0 + (QUAD - 1.0)
+        least = torch.minimum(
+            torch.minimum(edge_min(a, b, c, x0 - cx, y0, y1, cy),
+                          edge_min(a, b, c, x1 - cx, y0, y1, cy)),
+            torch.minimum(edge_min(c, b, a, y0 - cy, x0, x1, cx),
+                          edge_min(c, b, a, y1 - cy, x0, x1, cx)))
+        inside = (cx >= x0) & (cx <= x1) & (cy >= y0) & (cy <= y1)
+        least = torch.where(inside, torch.zeros_like(least), least)
+        keep[:, q] = ~(definite & (least > limit))
+    return keep
+
+
+def composite_stream_quadrants_plain(
+        rows: torch.Tensor, starts: torch.Tensor, bg: torch.Tensor, *,
+        tiles_x: int, tiles_y: int, tile_size: int, height: int, width: int,
+        hard_cutoffs: bool = True, stats: Optional[dict] = None
+        ) -> torch.Tensor:
+    """The stream kernel's scheme at 32-px tiles in plain PyTorch: every
+    16x16 quadrant of a tile blends, in the segment's order, the rows of the
+    tile's segment that `quadrant_cover_plain` keeps for it. The image is
+    `composite_stream_plain`'s; `stats` (see `_blend_plain`) counts the
+    pairs this scheme evaluates, and stats["staged_rows"] the (row,
+    quadrant) pairs kept of the stats["quadrant_tests"] tested."""
+    if tile_size != 2 * QUAD:
+        raise ValueError(f"tile size {tile_size}: the quadrants are those of "
+                         f"{2 * QUAD}-px tiles")
+    dev = rows.device
+    num_tiles = tiles_x * tiles_y
+    seg_len = (starts[1:] - starts[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(num_tiles, device=dev),
+                                   seg_len)
+    tx, ty = tile % tiles_x, tile // tiles_x
+    keep = quadrant_cover_plain(rows[:int(starts[-1])],
+                                (tx * tile_size).float(),
+                                (ty * tile_size).float(), hard_cutoffs)
+    every = torch.arange(num_tiles, device=dev)
+    c_out = rows.shape[1] - HDR + 1
+    img = torch.empty((c_out, tiles_y, 2, QUAD, tiles_x, 2, QUAD),
+                      device=dev)
+    totals = dict(pair_pixels=0, live_pair_pixels=0)
+    for q in range(4):
+        pick = keep[:, q].nonzero()[:, 0]            # segment order is kept
+        q_starts = torch.zeros(num_tiles + 1, dtype=torch.int64, device=dev)
+        q_starts[1:] = torch.cumsum(
+            torch.bincount(tile[pick], minlength=num_tiles), 0)
+        grid = _TileGrid(every % tiles_x, every // tiles_x, tile_size,
+                         side=QUAD, x0=QUAD * (q % 2), y0=QUAD * (q // 2))
+        q_stats = {} if stats is not None else None
+        accum = _blend_segments(rows[pick], q_starts, grid, bg, hard_cutoffs,
+                                q_stats)             # [T, C+1, 256]
+        img[:, :, q // 2, :, :, q % 2, :] = accum.reshape(
+            tiles_y, tiles_x, c_out, QUAD, QUAD).permute(2, 0, 3, 1, 4)
+        if stats is not None:
+            for k in totals:
+                totals[k] += q_stats[k]
+    if stats is not None:
+        stats.update(totals, staged_rows=int(keep.sum()),
+                     quadrant_tests=keep.numel())
+    img = img.reshape(c_out, tiles_y * tile_size, tiles_x * tile_size)
+    return img[:, :height, :width].contiguous()
+
+
+def warp_transpose_sum_plain(values: torch.Tensor) -> torch.Tensor:
+    """The backward kernels' transposed warp reduction
+    (`warp_transpose_sum` in csrc/composite_common.cuh) with tensor
+    indexing: values [32, V], lane l's V terms (V <= 32) -> [32]: lane v
+    ends with the sum over the 32 lanes of term v. The terms are padded to
+    16 or 32; at each shuffle distance d = 16 (for 32 terms), 8, 4, 2, 1 a
+    lane keeps the half of its terms that bit d of its lane number names,
+    hands the other half to lane l ^ d and adds what that lane hands over;
+    16 terms leave the two half-warps to be added last."""
+    lanes, v = values.shape
+    if lanes != 32 or v > 32:
+        raise ValueError(f"values must be [32, V <= 32], got "
+                         f"{tuple(values.shape)}")
+    n = 16 if v <= 16 else 32
+    regs = torch.zeros((32, n), dtype=values.dtype, device=values.device)
+    regs[:, :v] = values
+    lane = torch.arange(32, device=values.device)
+    half = n // 2
+    while half >= 1:
+        upper = ((lane & half) != 0)[:, None]
+        low, high = regs[:, :half], regs[:, half:2 * half]
+        keep = torch.where(upper, high, low)
+        send = torch.where(upper, low, high)
+        regs = keep + send[lane ^ half]              # __shfl_xor_sync
+        half //= 2
+    out = regs[:, 0]
+    if n == 16:
+        out = out + out[lane ^ 16]
+    return out
 
 
 def composite_cells_plain(rows: torch.Tensor, cell_starts: torch.Tensor,

@@ -25,7 +25,7 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("case", kernel_cases(),
-                         ids=lambda c: f"ts{c[0]}-hard{int(c[1])}-pw{c[4]}")
+                         ids=lambda c: f"ts{c[0]}-hard{int(c[1])}-pw{c[4]}-{c[5]}")
 def test_kernel_matches_plain(cuda_device, case):
     assert compare_case(*case, device=cuda_device, seed=1) <= 3e-5
 
