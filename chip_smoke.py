@@ -24,8 +24,8 @@ Phases, each failing the run on error:
      32 px the bound charges the pairs that the quadrant scheme evaluates,
      counted by its plain twin, whose image must be the plain version's;
   6. the ptxas figures (registers, shared memory, spills) of the kernels
-     and the blocks an SM holds of each, reckoned from them; a spill in a
-     redesigned kernel fails;
+     and the blocks an SM holds of each, reckoned from them; a spill in any
+     kernel fails;
   7. the tile-list kernels against their plain versions on synthetic lists
      (hard cutoffs on and off, counts of 0, 1, full and ragged, row widths
      16, 24 and 32, 35 tiles): forward <= 3e-5, backward within rtol 2e-3 /
@@ -39,7 +39,10 @@ Phases, each failing the run on error:
      of the packed rows' gradient, and every trained leaf's gradient, each
      held to rtol 2e-3 / atol 2e-4 relative to its own largest entry;
  10. per-stage device times of a step; kernel and plain times of both
-     kernels on step 1's rows;
+     kernels on step 1's rows. The forward's bound charges the pairs that
+     the kernel's scheme (the tile test drops rows no pixel of the tile
+     blends) evaluates, counted by its plain twin, whose output must be the
+     plain version's with the same live pairs;
  11. torch.profiler over five steps: device kernels per step and the
      device's busy share (taken at the end of the run, with phase 15's
      profile, so that no timing is taken with the profiler attached);
@@ -59,12 +62,18 @@ Phases, each failing the run on error:
      stream layout;
  17. the cell kernel against its plain version on synthetic cells (a cell
      with no candidate, candidates that cover no tile of the cell, hard
-     cutoffs on and off), <= 3e-5;
+     cutoffs on and off) and on adversarial cell rows (splats whose
+     alpha = 1/255 contour grazes a tile's edge, centres on tile borders,
+     indefinite conics), <= 3e-5;
  18. the cell-list render option: frames 0-9 of the bench workload through
      langsplat4d_torch.render.pipeline.render at 16-px tiles and 8x8-tile
      cells, counting the cell kernel's launches; frame 0 against the stream
      kernel's image (rgb and language 3e-5, depth 3e-4) and, composited
-     again from its rows, against the plain version on the whole frame.
+     again from its rows, against the plain version on the whole frame. The
+     bound charges the pairs left once the tile test drops the covered rows
+     that no pixel of the tile blends, counted by the plain twin of that
+     scheme, whose image must be the plain version's with the same live
+     pairs.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Imports
@@ -105,12 +114,6 @@ KERNELS = {
     "composite_cells": ("langsplat4d_torch/csrc/composite_cells.cu",
                         "langsplat4d/ops/tile_composite.py:956"),
 }
-# the kernels in their second version, designed for the H100's SM: these
-# must not spill registers (phase 6). composite_cells, still in its first
-# version, spills 8 bytes at row width 16; the list goes when the last
-# kernel has had its second version.
-REDESIGNED = ("composite_stream", "composite_tiles_backward",
-              "composite_stream_chunks_backward")
 # One Hopper SM: 32-bit registers (handed out to a warp in units of 256, so
 # a thread's count rounds up to 8), shared memory (1 KiB of it reserved per
 # resident block), resident threads and blocks.
@@ -486,26 +489,14 @@ def compare_segment_case(hard, pw, device, seed=0, tiles=(7, 5)):
                 for j in range(pw)))
 
 
-def synthetic_cells(cells_x, cells_y, cell, per_tile, generator, pw=16):
-    """Depth-ordered candidate rows per cell on the CPU, from
-    `synthetic_stream`'s Gaussians (`per_tile` around every tile of the
-    grid, in depth order): each gets a tile rect of random reach around its
-    centre and is a candidate of every cell the rect touches. Besides, every
-    cell gets some candidates whose rect covers none of its tiles, and cell 1
-    gets no candidate at all. Returns (rows [M, pw] f32 with the rect in
-    columns 6 and 7, cell_starts [n_cells + 1] int32)."""
-    tiles_x, tiles_y = cells_x * cell, cells_y * cell
-    table, _ = synthetic_stream(tiles_x, tiles_y, 16,
-                                [per_tile] * (tiles_x * tiles_y), generator,
-                                pw=pw)
+def cell_lists(table, lo, hi, cells_x, cells_y, cell, generator):
+    """Candidate lists of Gaussians with tile rects [lo, hi) (max exclusive)
+    in cells of cell x cell tiles: the rect goes into columns 6 and 7 as
+    x + 256 y, and a Gaussian is a candidate of every cell its rect
+    touches, in the table's order. Besides, every cell gets some candidates
+    whose rect covers none of its tiles, and cell 1 gets no candidate at
+    all. Returns (rows, cell_starts [n_cells + 1] int32)."""
     m = table.shape[0]
-    table = table[torch.randperm(m, generator=generator)]
-    table[:, pw - 2] = torch.sort(table[:, pw - 2]).values   # depth order
-    reach = torch.rand(m, 2, generator=generator) * 40.0 + 4.0
-    lo = torch.clamp(torch.floor((table[:, :2] - reach) / 16.0), min=0)
-    hi = torch.clamp(torch.floor((table[:, :2] + reach) / 16.0) + 1, min=0)
-    hi = torch.minimum(hi, torch.tensor([tiles_x, tiles_y]).float())
-    lo = torch.minimum(lo, hi)
     table[:, 6] = lo[:, 0] + 256.0 * lo[:, 1]
     table[:, 7] = hi[:, 0] + 256.0 * hi[:, 1]
     picks, lens = [], []
@@ -523,17 +514,133 @@ def synthetic_cells(cells_x, cells_y, cell, per_tile, generator, pw=16):
     return table[torch.cat(picks)], starts
 
 
+def synthetic_cells(cells_x, cells_y, cell, per_tile, generator, pw=16):
+    """Depth-ordered candidate rows per cell on the CPU, from
+    `synthetic_stream`'s Gaussians (`per_tile` around every tile of the
+    grid, in depth order): each gets a tile rect of random reach around its
+    centre (`cell_lists`). Returns (rows [M, pw] f32 with the rect in
+    columns 6 and 7, cell_starts [n_cells + 1] int32)."""
+    tiles_x, tiles_y = cells_x * cell, cells_y * cell
+    table, _ = synthetic_stream(tiles_x, tiles_y, 16,
+                                [per_tile] * (tiles_x * tiles_y), generator,
+                                pw=pw)
+    m = table.shape[0]
+    table = table[torch.randperm(m, generator=generator)]
+    table[:, pw - 2] = torch.sort(table[:, pw - 2]).values   # depth order
+    reach = torch.rand(m, 2, generator=generator) * 40.0 + 4.0
+    lo = torch.clamp(torch.floor((table[:, :2] - reach) / 16.0), min=0)
+    hi = torch.clamp(torch.floor((table[:, :2] + reach) / 16.0) + 1, min=0)
+    hi = torch.minimum(hi, torch.tensor([tiles_x, tiles_y]).float())
+    lo = torch.minimum(lo, hi)
+    return cell_lists(table, lo, hi, cells_x, cells_y, cell, generator)
+
+
+def adversarial_cells(cells_x, cells_y, cell, per_tile, generator, pw=16):
+    """Depth-ordered candidate rows per cell on the CPU that are hard on the
+    cell kernel's tile test: `per_tile` Gaussians at home in every 16-px
+    tile, a quarter each
+    - rotated, strongly anisotropic splats (axes 6-30 and 0.3-1.2 px) whose
+      alpha = 1/255 contour passes within 5% of a pixel on the home tile's
+      edge (tile-local x or y in {0, 15});
+    - splats centred on a tile border (a multiple of 16 in x or y, or
+      both) with an opacity within a factor 0.9-1.5 of 1/255, so that at
+      most the pixels next to the centre blend them;
+    - indefinite conics (b^2 > a c), which the test must keep;
+    - `synthetic_stream`'s ordinary ones, which make pixels saturate.
+    Every rect covers its home tile and reaches 0-2 tiles beyond it on each
+    side, so most (tile, row) pairs it covers are far from the splat
+    (`cell_lists`). Returns (rows [M, pw] f32, cell_starts [n_cells + 1]
+    int32)."""
+    tiles_x, tiles_y = cells_x * cell, cells_y * cell
+    rows, _ = synthetic_stream(tiles_x, tiles_y, 16,
+                               [per_tile] * (tiles_x * tiles_y), generator,
+                               pw=pw)
+    m = rows.shape[0]
+    home = torch.arange(m) // per_tile
+    hx, hy = home % tiles_x, home // tiles_x
+    ox, oy = hx.float() * 16.0, hy.float() * 16.0
+
+    def u(lo, hi):
+        return torch.rand(m, generator=generator) * (hi - lo) + lo
+
+    def pick(values):
+        return torch.tensor(values)[torch.randint(len(values), (m,),
+                                                  generator=generator)]
+    kind = torch.randint(4, (m,), generator=generator)
+    sa = torch.where(kind == 0, u(6.0, 30.0), u(0.5, 6.0))
+    sb = torch.where(kind == 0, u(0.3, 1.2), u(0.5, 6.0))
+    th = u(0.0, np.pi)
+    c, s_ = torch.cos(th), torch.sin(th)
+    cxx = c * c * sa * sa + s_ * s_ * sb * sb + 0.05
+    cyy = s_ * s_ * sa * sa + c * c * sb * sb + 0.05
+    cxy = c * s_ * (sa * sa - sb * sb)
+    det = cxx * cyy - cxy * cxy
+    a, b, cc = cyy / det, -cxy / det, cxx / det
+    op = torch.where(kind == 1, u(0.9, 1.5) / 255.0, u(0.05, 0.99))
+    # kind 0: the pixel `at` on the home tile's edge lies on the level
+    # 2 ln(255 op) (1 + delta)^2 of the conic quadratic, delta within 5%
+    edge = pick([0.0, 15.0])
+    other = torch.where(u(0.0, 1.0) < 0.5, pick([0.0, 15.0]),
+                        torch.floor(u(0.0, 16.0)))
+    swap = u(0.0, 1.0) < 0.5
+    at_x = ox + torch.where(swap, edge, other)
+    at_y = oy + torch.where(swap, other, edge)
+    phi = u(0.0, 2.0 * np.pi)
+    ux, uy = torch.cos(phi), torch.sin(phi)
+    reach = torch.sqrt(2.0 * torch.log(255.0 * op)
+                       / (a * ux * ux + 2.0 * b * ux * uy + cc * uy * uy))
+    reach = reach * (1.0 + u(-0.05, 0.05))
+    cx = torch.where(kind == 0, at_x + ux * reach, rows[:, 0])
+    cy = torch.where(kind == 0, at_y + uy * reach, rows[:, 1])
+    # kind 1: on a border of the home tile
+    on_x = u(0.0, 1.0) < 0.7
+    on_y = ~on_x | (u(0.0, 1.0) < 0.3)
+    cx = torch.where((kind == 1) & on_x, ox + pick([0.0, 16.0]), cx)
+    cy = torch.where((kind == 1) & on_y, oy + pick([0.0, 16.0]), cy)
+    cx = torch.where((kind == 1) & ~on_x, ox + u(0.0, 16.0), cx)
+    cy = torch.where((kind == 1) & ~on_y, oy + u(0.0, 16.0), cy)
+    # kind 2: indefinite, b^2 = (1.5 to 4) a c, either sign
+    b = torch.where(kind == 2, torch.sqrt(a * cc * u(1.5, 4.0))
+                    * torch.where(u(0.0, 1.0) < 0.5, 1.0, -1.0), b)
+    plain = kind == 3
+    for col, val in ((0, cx), (1, cy), (2, a), (3, b), (4, cc),
+                     (5, torch.log(op))):
+        rows[:, col] = torch.where(plain, rows[:, col], val)
+    order = torch.randperm(m, generator=generator)
+    rows, hx, hy = rows[order], hx[order], hy[order]
+    rows[:, pw - 2] = torch.sort(rows[:, pw - 2]).values    # depth order
+    home = torch.stack([hx, hy], 1).float()
+    grid = torch.tensor([tiles_x, tiles_y]).float()
+    lo = torch.clamp(home - torch.randint(3, (m, 2), generator=generator),
+                     min=0)
+    hi = torch.minimum(home + 1 + torch.randint(3, (m, 2),
+                                                generator=generator), grid)
+    return cell_lists(rows, lo, hi, cells_x, cells_y, cell, generator)
+
+
 def cell_cases():
-    """(hard_cutoffs, pw) cases of phase 17."""
-    return [(True, 16), (False, 16), (True, 24)]
+    """(hard_cutoffs, pw, rows) cases of phase 17; `rows` names the
+    candidates: "synthetic" (`synthetic_cells`) or "adversarial"
+    (`adversarial_cells`)."""
+    return [(True, 16, "synthetic"), (False, 16, "synthetic"),
+            (True, 24, "synthetic"), (True, 16, "adversarial"),
+            (False, 32, "adversarial")]
 
 
-def compare_cell_case(hard, pw, device, seed=0, cells=(3, 2), cell=4):
+def make_cells(kind, pw, generator, cells=(3, 2), cell=4):
+    """The candidate rows of one cell case (see `cell_cases`)."""
+    if kind == "adversarial":
+        return adversarial_cells(cells[0], cells[1], cell, 12, generator,
+                                 pw=pw)
+    return synthetic_cells(cells[0], cells[1], cell, 30, generator, pw=pw)
+
+
+def compare_cell_case(hard, pw, kind, device, seed=0, cells=(3, 2), cell=4):
     """The cell kernel and its plain version on one synthetic case -> max
     abs error."""
     from langsplat4d_torch.ops import composite as C
     g = torch.Generator().manual_seed(seed)
-    rows, starts = synthetic_cells(cells[0], cells[1], cell, 30, g, pw=pw)
+    rows, starts = make_cells(kind, pw, g, cells, cell)
     if int(starts[2] - starts[1]) != 0 or int(starts[1]) < 300:
         raise AssertionError(f"bad synthetic cells {starts.tolist()}")
     rows, starts = rows.to(device), starts.to(device)
@@ -960,8 +1067,28 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     rows, bounds, g_out, total = (ker[k] for k in
                                   ("rows", "bounds", "g_out", "total"))
     stats = {}
-    fwd_plain(rows, bounds, bg, stats=stats, **kw)
+    plain_out = fwd_plain(rows, bounds, bg, stats=stats, **kw)
     pairs, live = stats["pair_pixels"], stats["live_pair_pixels"]
+    f_pairs = pairs           # what the forward's bound charges
+    if not stream:
+        # The lists carry rows that no pixel of their tile blends (they are
+        # cut with no ellipse cull), and the kernel's tile test drops them:
+        # the same output, bit for bit, from the pairs that the plain twin
+        # of that scheme counts, which the forward's bound charges (the
+        # backward's keeps the plain version's count, as before).
+        needed = {}
+        culled = C.composite_tiles_plain(rows, bounds, bg, cull=True,
+                                         stats=needed, **kw)
+        print(f"[{p_time}] step 1 lists: the tile test keeps "
+              f"{needed['kept_rows']} of {n_valid} rows; the plain version "
+              f"evaluates {pairs} pair-pixels, the culled scheme "
+              f"{needed['pair_pixels']}, live {live} and "
+              f"{needed['live_pair_pixels']}", flush=True)
+        if (not torch.equal(culled, plain_out)
+                or needed["live_pair_pixels"] != live):
+            raise AssertionError("the culled list scheme drops a pair that "
+                                 "blends")
+        f_pairs = needed["pair_pixels"]
     t_n, pw = ker["accum"].shape[0], rows.shape[-1]
     c = ker["d_packed"].shape[1] - 6      # the real channels, padding apart
     # each input read once, each output written once: the valid rows (the
@@ -970,7 +1097,7 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     valid_row_bytes = n_valid * pw * 4
     out_bytes = t_n * (pw - 7) * 256 * 4
     f_bound = bound(valid_row_bytes + bounds.numel() * 4 + 12 + out_bytes,
-                    forward_ops(pairs, live, c))
+                    forward_ops(f_pairs, live, c))
     b_bound = bound(valid_row_bytes + bounds.numel() * 4 + out_bytes
                     + t_n * 256 * 4 + rows.numel() * 4,
                     backward_ops(pairs, live, c))
@@ -978,7 +1105,7 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     fp_ms = time_ms(lambda: fwd_plain(rows, bounds, bg, **kw), 1)
     b_ms = time_ms(lambda: bwd(rows, bounds, g_out, total, **kw), 20)
     bp_ms = time_ms(lambda: bwd_plain(rows, bounds, g_out, total, **kw), 1)
-    print(f"[{p_time}] step 1 rows {list(rows.shape)}, {pairs} evaluated "
+    print(f"[{p_time}] step 1 rows {list(rows.shape)}, {f_pairs} evaluated "
           f"pair-pixels of which {live} live, {c} channels: forward kernel "
           f"{f_ms:.3f} ms (bound {f_bound[0]:.4f} by {f_bound[1]}: "
           f"{f_bound[2]}), plain {fp_ms:.1f} ms; backward kernel "
@@ -1091,9 +1218,8 @@ def cell_phases(dev, frames=10, **workload_kw):
     Returns the cell kernel's JSON entry."""
     from langsplat4d_torch.field.deformation import make_grid_spatial_cache
     from langsplat4d_torch.ops import composite as C
-    from langsplat4d_torch.render.pipeline import prepare_attributes, render
-    from langsplat4d_torch.render.raster import RasterSettings, preprocess
-    from langsplat4d_torch.render.stream import bin_cells, pack_cell_rows
+    from langsplat4d_torch.render.pipeline import render
+    from langsplat4d_torch.render.raster import RasterSettings
     on_card = dev.type == "cuda"
     gs, dcfg, net, aabb, views = bench_workload(dev, frames=60,
                                                 **workload_kw)
@@ -1168,52 +1294,98 @@ def cell_phases(dev, frames=10, **workload_kw):
             raise AssertionError("the cell option's frame differs from the "
                                  "stream kernel's")
 
-        # frame 0's rows again: kernel vs plain on the whole frame
-        a = prepare_attributes(dcfg, "fine-lang", views[0].time, gs, net,
-                               aabb, grid_spatial=grid_spatial)
-        prep = preprocess(cells_st, views[0].camera_params(dev), a[0], a[3],
-                          a[1], a[2], a[4], None, active=gs.active_mask())
-        src, cell_starts = bin_cells(cells_st, prep)
-        rows = pack_cell_rows(prep, a[5], src)
-        kw = dict(cells_x=cells_st.cells_x, cell=cells_st.bin_cell_tiles,
-                  tile_size=16, hard_cutoffs=True)
+        # frame 0's rows again: kernel vs plain on the whole frame, and the
+        # pairs the kernel's culled scheme evaluates
+        rows, cell_starts, kw = frame_cell_rows(cells_st, dcfg, gs, net, aabb,
+                                                views[0], grid_spatial)
         out = C.composite_cells(rows, cell_starts, bg, **kw)
-        stats = {}
         t0 = time.perf_counter()
-        ref = C.composite_cells_plain(rows, cell_starts, bg, stats=stats,
-                                      **kw)
+        ref = C.composite_cells_plain(rows, cell_starts, bg, **kw)
         if on_card:
             torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
         err = float((out - ref).abs().max())
-        lens = cell_starts[1:] - cell_starts[:-1]
-        print(f"[18] frame 0: {rows.shape[0]} candidates in "
-              f"{lens.numel()} cells, longest list {int(lens.max())}, "
-              f"{stats['rect_tests']} (tile, candidate) pairs; kernel vs "
-              f"plain on the whole frame max abs err {err:.3g}", flush=True)
+        print(f"[18] frame 0: kernel vs plain on the whole frame max abs err "
+              f"{err:.3g}", flush=True)
         if not err <= TOL:
             raise AssertionError(f"cell kernel vs plain {err} > {TOL}")
+        needed = cell_scheme_report(rows, cell_starts, bg, kw, ref)
         if not on_card:
             return None
         k_ms = time_ms(lambda: C.composite_cells(rows, cell_starts, bg,
                                                  **kw), 20)
     # each input read once, the output written once; the operations are the
-    # blend's over the covered rows (the 4 comparisons of each of the
-    # (tile, candidate) rect tests are left out, so the bound is a little
-    # low)
+    # blend's over the rows the kernel's scheme evaluates (the rect and tile
+    # tests of the (tile, candidate) pairs are left out, so the bound is a
+    # little low)
     c_bound = bound(rows.numel() * 4 + cell_starts.numel() * 4 + 12
                     + out.numel() * 4,
-                    forward_ops(stats["pair_pixels"],
-                                stats["live_pair_pixels"],
+                    forward_ops(needed["pair_pixels"],
+                                needed["live_pair_pixels"],
                                 3 + dcfg.lang_dim + 1))
     print(f"[18] cell kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; "
-          f"{stats['pair_pixels']} evaluated pair-pixels of which "
-          f"{stats['live_pair_pixels']} live, bound {c_bound[0]:.4f} ms by "
+          f"{needed['pair_pixels']} evaluated pair-pixels of which "
+          f"{needed['live_pair_pixels']} live, bound {c_bound[0]:.4f} ms by "
           f"{c_bound[1]} ({c_bound[2]}): kernel / bound "
           f"{k_ms / c_bound[0]:.2f}", flush=True)
     return dict(name="composite_cells", launches=launches, max_abs_err=err,
                 ms=k_ms, plain_ms=p_ms, bound_ms=c_bound[0],
                 bound_by=c_bound[1])
+
+
+def frame_cell_rows(settings, dcfg, gs, net, aabb, view, grid_spatial):
+    """One frame's cell rows, as the cell option builds them -> (rows,
+    cell_starts, the cell kernel's keyword arguments)."""
+    from langsplat4d_torch.render.pipeline import prepare_attributes
+    from langsplat4d_torch.render.raster import preprocess
+    from langsplat4d_torch.render.stream import bin_cells, pack_cell_rows
+    dev = gs.device
+    a = prepare_attributes(dcfg, "fine-lang", view.time, gs, net, aabb,
+                           grid_spatial=grid_spatial)
+    prep = preprocess(settings, view.camera_params(dev), a[0], a[3], a[1],
+                      a[2], a[4], None, active=gs.active_mask())
+    src, cell_starts = bin_cells(settings, prep)
+    rows = pack_cell_rows(prep, a[5], src)
+    return rows, cell_starts, dict(cells_x=settings.cells_x,
+                                   cell=settings.bin_cell_tiles,
+                                   tile_size=16, hard_cutoffs=True)
+
+
+def cell_scheme_report(rows, cell_starts, bg, kw, ref, phase=18):
+    """The cell kernel's scheme on one frame's rows, counted by its plain
+    twin (`composite_cells_plain` with `cull`): a tile evaluates only the
+    candidates whose rect covers it and that the tile test keeps. Prints
+    the candidates, the rows covered and kept per tile and per 256-candidate
+    pass of the walk (every pass, as if no pixel stopped), and the pairs
+    the plain version and the scheme evaluate. Fails if the scheme's output
+    is not `ref` (the plain version's) bit for bit or its live pairs
+    differ. -> the scheme's stats."""
+    from langsplat4d_torch.ops import composite as C
+    whole, needed = {}, {}
+    C.composite_cells_plain(rows, cell_starts, bg, stats=whole, **kw)
+    culled = C.composite_cells_plain(rows, cell_starts, bg, cull=True,
+                                     stats=needed, **kw)
+    lens = (cell_starts[1:] - cell_starts[:-1]).long()
+    tiles = lens.numel() * kw["cell"] ** 2
+    passes = int((lens + 255).div(256, rounding_mode="floor").sum()
+                 ) * kw["cell"] ** 2
+    print(f"[{phase}] frame 0: {rows.shape[0]} candidates in {lens.numel()} "
+          f"cells, longest list {int(lens.max())}, {needed['rect_tests']} "
+          f"(tile, candidate) pairs in {passes} passes of {tiles} tiles; "
+          f"rect-covered rows {needed['covered_rows']} "
+          f"({needed['covered_rows'] / tiles:.1f} a tile, "
+          f"{needed['covered_rows'] / passes:.1f} a pass), kept by the tile "
+          f"test {needed['kept_rows']} ({needed['kept_rows'] / tiles:.1f} a "
+          f"tile, {needed['kept_rows'] / passes:.1f} a pass); evaluated "
+          f"pair-pixels {whole['pair_pixels']} over the covered rows, "
+          f"{needed['pair_pixels']} over the kept, live "
+          f"{whole['live_pair_pixels']} and {needed['live_pair_pixels']}",
+          flush=True)
+    if (not torch.equal(culled, ref)
+            or needed["live_pair_pixels"] != whole["live_pair_pixels"]):
+        raise AssertionError("the culled cell scheme drops a pair that "
+                             "blends")
+    return needed
 
 
 def time_ms(fn, reps):
@@ -1247,9 +1419,7 @@ def compare_inputs(dev):
     step 1 of the training-step workload on both layouts, and the stream
     layout's longest segment alone: one block's walk)."""
     from langsplat4d_torch.field.deformation import make_grid_spatial_cache
-    from langsplat4d_torch.render.pipeline import prepare_attributes
-    from langsplat4d_torch.render.raster import RasterSettings, preprocess
-    from langsplat4d_torch.render.stream import bin_cells, pack_cell_rows
+    from langsplat4d_torch.render.raster import RasterSettings
     cases = {}
     gs, dcfg, net, aabb, views = bench_workload(dev)
     h, w = views[0].height, views[0].width
@@ -1268,14 +1438,8 @@ def compare_inputs(dev):
                 m.composite_stream(*a, **kw))
         st = RasterSettings(image_height=h, image_width=w, sh_degree=3,
                             cell_composite=True)
-        a = prepare_attributes(dcfg, "fine-lang", views[0].time, gs, net,
-                               aabb, grid_spatial=grid_spatial)
-        prep = preprocess(st, views[0].camera_params(dev), a[0], a[3], a[1],
-                          a[2], a[4], None, active=gs.active_mask())
-        src, cell_starts = bin_cells(st, prep)
-        rows = pack_cell_rows(prep, a[5], src)
-        kw = dict(cells_x=st.cells_x, cell=st.bin_cell_tiles, tile_size=16,
-                  hard_cutoffs=True)
+        rows, cell_starts, kw = frame_cell_rows(st, dcfg, gs, net, aabb,
+                                                views[0], grid_spatial)
         cases[f"composite_cells [{rows.shape[0]} candidates]"] = (
             "composite_cells", rows.shape[1],
             lambda m, a=(rows, cell_starts, torch.zeros(3, device=dev)),
@@ -1518,8 +1682,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 6. the kernels' resources, one line pair per row width 32, 24, 16,
-    # and the blocks an SM holds of each; no spills in the redesigned
-    # kernels
+    # and the blocks an SM holds of each; no kernel may spill
     for name in composite.KERNELS:
         log = composite.ptxas_report(name)
         for line in log.splitlines():
@@ -1532,7 +1695,7 @@ def main():
         print(f"[6] {name}: resident blocks per SM at row widths "
               + ", ".join(f"{pw}: {res[pw][3]}" for pw in sorted(res)),
               flush=True)
-        if name in REDESIGNED and any(r[2] for r in res.values()):
+        if any(r[2] for r in res.values()):
             raise AssertionError(f"{name} spills registers")
 
     # 7. the tile-list kernels vs plain on synthetic lists
@@ -1591,9 +1754,10 @@ def main():
     torch.cuda.empty_cache()
 
     # 17. the cell kernel vs plain on synthetic cells
-    for hard, pw in cell_cases():
-        err = compare_cell_case(hard, pw, dev)
-        print(f"[17] hard={hard} pw={pw}: max abs err {err:.3g}", flush=True)
+    for hard, pw, kind in cell_cases():
+        err = compare_cell_case(hard, pw, kind, dev)
+        print(f"[17] hard={hard} pw={pw} {kind}: max abs err {err:.3g}",
+              flush=True)
         if not err <= TOL:
             raise AssertionError(f"cell kernel vs plain {err} > {TOL}")
 

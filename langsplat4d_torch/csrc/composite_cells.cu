@@ -18,18 +18,30 @@
 //
 // The TPU kernel makes one grid step a cell, loops over its tiles, and folds
 // the rect test into ln_op so that an uncovered row blends with alpha 0.
-// Here one block is one tile and the rect test is uniform over the block, so
-// it is made while staging: of each batch of 256 candidates, thread j tests
-// row j's rect against the tile, a ballot and a prefix over the warps give
-// the covered rows their places in depth order, and only those are copied
-// to shared memory (coalesced, through the index list) and given
-// coefficients. The pixel loop is the other forward kernels'
-// (composite_common.cuh) and never sees an uncovered row.
+// Here one block of 256 threads is one tile, and the walk over the cell's
+// list is the forward walk of composite_common.cuh with the rect test as
+// its cover test, made by the thread that loaded the row's header (its
+// first 32-byte sector, two 16-byte loads), with the corners decoded
+// exactly and without fmod or division: y = floor(v / 256) by a multiply
+// with 1/256 (a power of two: exact), x = v - 256 y (exact), for the
+// integers v = x + 256 y <= 65535 that the rows hold. Only the covered rows
+// get coefficients and have their features gathered, in depth order, into
+// a buffer of DEPTH rows that is carried across scan passes and blended
+// when it is full or the list ends: a pass keeps ~20 of its 256 candidates
+// on the bench frame, so a tile blends its ~250 rows in one or two batches
+// instead of a dozen. The early exit is tested before every pass.
+//
+// The cell lists are binned by tile rect with no ellipse cull, and about a
+// fifth of the covered rows blend no pixel of the tile. The tile-list
+// kernel's tile test (`quadrant_covered` with the tile as the rect) would
+// drop them with the image unchanged, but here it cost more than the
+// evaluations it saved: those rows mostly fail the cheap pre-test before
+// expf.
 //
 // What bounds it: the walk over candidates, not the blend. Each of a cell's
 // cell^2 tiles reads the headers of the cell's whole list (from L2 after the
-// first), so the rect tests outnumber the blended rows by the share of a
-// cell that a Gaussian covers; the arithmetic per covered (Gaussian, pixel)
+// first), so the cover tests outnumber the blended rows by the share of a
+// cell that a Gaussian covers; the arithmetic per kept (Gaussian, pixel)
 // pair is the stream kernel's.
 
 #include "composite_common.cuh"
@@ -38,41 +50,47 @@ namespace {
 
 using namespace ls4d;
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;
-constexpr int NW = PX / 32;
-constexpr int BATCH = PX;    // candidates tested per pass, one per thread
-
+// Rows buffered across scan passes, by row width: as many as 48 KB of static
+// shared memory hold (32 bytes of coefficients and PW - 8 floats of features
+// a row), and at least a pass more than 256.
 template <int PW>
-__global__ void __launch_bounds__(PX)
+constexpr int CELL_DEPTH = PW == 16 ? 512 : PW == 24 ? 384 : 320;
+
+// The cell kernel's cover test: does the row's tile rect (h1.z, h1.w)
+// cover the tile (tx, ty)?
+struct CellCover {
+  float tx, ty;
+  __device__ bool active() const { return true; }
+  __device__ bool operator()(const float4&, const float4& h1) const {
+    const float min_y = floorf(h1.z * (1.0f / 256.0f));
+    const float min_x = h1.z - 256.0f * min_y;
+    const float max_y = floorf(h1.w * (1.0f / 256.0f));
+    const float max_x = h1.w - 256.0f * max_y;
+    return min_x <= tx && tx < max_x && min_y <= ty && ty < max_y;
+  }
+};
+
+// Four blocks an SM at row width 16 (64 registers, no spill), with a kept
+// row's features loaded right after its rect test; three blocks with the
+// later gather were slower.
+template <int PW>
+__global__ void __launch_bounds__(BLOCK_PX, PW == 16 ? 4 : 2)
 composite_cells_kernel(const float* __restrict__ cell_rows,
                        const int* __restrict__ cell_starts,
                        const float* __restrict__ bg,
                        float* __restrict__ out,
                        int cells_x, int cell, int hard) {
   constexpr int C = PW - HDR;
-  __shared__ float s_rows[BATCH * PW];
-  __shared__ float s_coef[BATCH * 8];
-  __shared__ int s_idx[BATCH];     // covered rows of the batch, depth order
-  __shared__ int s_cnt[NW];        // covered rows per warp
-
   const int tiles_per_cell = cell * cell;
   const int ci = blockIdx.x / tiles_per_cell;
   const int lt = blockIdx.x % tiles_per_cell;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int pixel = block_pixel(threadIdx.x);
   // this tile's coordinates in the tile grid
   const int tx = (ci % cells_x) * cell + lt % cell;
   const int ty = (ci / cells_x) * cell + lt / cell;
-  const float txf = static_cast<float>(tx);
-  const float tyf = static_cast<float>(ty);
-  const float ox = static_cast<float>(tx * TILE);
-  const float oy = static_cast<float>(ty * TILE);
-  const PixelBasis basis(tid % TILE, tid / TILE);
+  const float ox = static_cast<float>(tx * QUAD);
+  const float oy = static_cast<float>(ty * QUAD);
   const int seg_begin = cell_starts[ci];
-  const int count = cell_starts[ci + 1] - seg_begin;
-  const float* rows = cell_rows + static_cast<size_t>(seg_begin) * PW;
 
   float T = 1.0f;
   float acc[C];
@@ -80,71 +98,26 @@ composite_cells_kernel(const float* __restrict__ cell_rows,
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   float asum = 0.0f;
   bool done = false;
+  const CellCover cover{static_cast<float>(tx), static_cast<float>(ty)};
+  forward_walk<PW, CELL_DEPTH<PW>, true>(
+      cell_rows + static_cast<size_t>(seg_begin) * PW,
+      cell_starts[ci + 1] - seg_begin, ox, oy,
+      PixelBasis(pixel % QUAD, pixel / QUAD), cover, hard, &T, acc, &asum,
+      &done);
 
-  for (int b0 = 0; b0 < count; b0 += BATCH) {
-    const int nb = min(BATCH, count - b0);
-    // barrier before the shared buffers are overwritten; with hard cutoffs
-    // it also counts the pixels still blending
-    if (hard) {
-      if (__syncthreads_count(!done) == 0) break;
-    } else {
-      __syncthreads();
-    }
-    const float* src = rows + static_cast<size_t>(b0) * PW;
-
-    // thread j: does the rect of candidate j cover this tile?
-    bool covered = false;
-    if (tid < nb) {
-      const float rect_a = src[tid * PW + 6];
-      const float rect_b = src[tid * PW + 7];
-      const float rminx = fmodf(rect_a, 256.0f);
-      const float rminy = (rect_a - rminx) / 256.0f;
-      const float rmaxx = fmodf(rect_b, 256.0f);
-      const float rmaxy = (rect_b - rmaxx) / 256.0f;
-      covered = rminx <= txf && txf < rmaxx && rminy <= tyf && tyf < rmaxy;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, covered);
-    if (lane == 0) s_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0;
-    int n_cov = 0;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const int n = s_cnt[w];
-      if (w < warp) before += n;
-      n_cov += n;
-    }
-    if (covered) s_idx[before + __popc(ballot & ((1u << lane) - 1u))] = tid;
-    __syncthreads();
-
-    // the covered rows, in depth order, to shared memory; then their
-    // coefficients, one thread per row
-    for (int i = tid; i < n_cov * PW; i += PX) {
-      s_rows[i] = src[s_idx[i / PW] * PW + i % PW];
-    }
-    __syncthreads();
-    if (tid < n_cov) {
-      row_coefficients(s_rows + tid * PW, ox, oy, s_coef + tid * 8);
-    }
-    __syncthreads();
-    if (!done) {
-      blend_staged<PW>(s_rows, s_coef, n_cov, basis, hard, &T, acc, &asum,
-                       &done);
-    }
-  }
-
-  float* o = out + static_cast<size_t>(blockIdx.x) * (C + 1) * PX + tid;
+  float* o = out + static_cast<size_t>(blockIdx.x) * (C + 1) * BLOCK_PX +
+             pixel_after_walk();
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    o[c * PX] = c < 3 ? acc[c] + bg[c] * T : acc[c];
+    o[c * BLOCK_PX] = c < 3 ? acc[c] + bg[c] * T : acc[c];
   }
-  o[C * PX] = asum;
+  o[C * BLOCK_PX] = asum;
 }
 
 }  // namespace
 
-// cell_rows [M, PW], cell_starts [n_cells + 1], bg [3] -> out
-// [n_cells, cell * cell, PW - 8 + 1, 256]. Launches on `stream`; returns
+// cell_rows [M, PW] (16-byte aligned), cell_starts [n_cells + 1], bg [3] ->
+// out [n_cells, cell * cell, PW - 8 + 1, 256]. Launches on `stream`; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a row
 // width the kernel does not take.
 extern "C" int ls4d_composite_cells(const float* cell_rows,
@@ -154,7 +127,7 @@ extern "C" int ls4d_composite_cells(const float* cell_rows,
                                     cudaStream_t stream) {
   if (n_cells <= 0 || cell <= 0) return cudaSuccess;
   const dim3 grid(n_cells * cell * cell);
-  const dim3 block(PX);
+  const dim3 block(BLOCK_PX);
   switch (pw) {
     case 16:
       composite_cells_kernel<16><<<grid, block, 0, stream>>>(

@@ -17,17 +17,22 @@
 // hard cutoffs a pixel stops for good before the first Gaussian that would
 // take T below 1e-4 (the TPU kernel resumes it at the next chunk).
 //
-// Design: one block per 16x16 tile, one thread per pixel; the segment is
-// staged through shared memory 256 rows at a time with coalesced loads and
-// blended by the loop the other forward kernels use (composite_common.cuh);
-// the block leaves its segment once __syncthreads_count shows every pixel
-// done. A segment has no capacity, so it may span many batches; row offsets
-// are 64-bit.
+// Design: one block of 256 threads per 16x16 tile, one thread per pixel,
+// over the tile's segment with the forward walk of composite_common.cuh
+// and no cover test: the stream is ellipse-culled at its build, so a slot
+// that no pixel of its tile can blend is rare. A pass loads 256 rows, the
+// headers by the threads that turn them into coefficients and the features
+// with coalesced 16-byte loads, behind one barrier that with hard cutoffs
+// also counts the pixels still blending; the blend computes the powers of
+// four Gaussians ahead of the serial T chain, skips the expf of pairs far
+// below alpha = 1/255, and runs on warps of 8x4 pixels. A segment has no
+// capacity, so it may span many passes; row offsets are 64-bit.
 //
 // What bounds it: arithmetic, not bytes. A (Gaussian, pixel) pair costs one
 // expf and ~20 + 2C fp32 operations, against one PW-float row per Gaussian
 // and tile shared by 256 pixels; the time is the per-pixel dependent chain
-// times the walked segment length, and the early exit is what cuts it.
+// times the walked segment length, and the early exit is what cuts it. The
+// launch ends with the longest segment's walk, one block on one SM.
 
 #include "composite_common.cuh"
 
@@ -35,29 +40,21 @@ namespace {
 
 using namespace ls4d;
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;
-constexpr int BATCH = 256;   // rows staged per pass
-
+// Three blocks an SM at row width 16 (up to 80 registers): at four ptxas
+// spills.
 template <int PW>
-__global__ void __launch_bounds__(PX)
+__global__ void __launch_bounds__(BLOCK_PX, PW == 16 ? 3 : 2)
 composite_stream_chunks_kernel(const float* __restrict__ rows,
                                const int* __restrict__ starts,
                                const float* __restrict__ bg,
                                float* __restrict__ out,
                                int tiles_x, int hard) {
   constexpr int C = PW - HDR;
-  __shared__ float s_rows[BATCH * PW];
-  __shared__ float s_coef[BATCH * 8];  // k0..k5, ln_op, unused
-
   const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float ox = static_cast<float>((tile % tiles_x) * TILE);
-  const float oy = static_cast<float>((tile / tiles_x) * TILE);
-  const PixelBasis basis(tid % TILE, tid / TILE);
+  const int pixel = block_pixel(threadIdx.x);
+  const float ox = static_cast<float>((tile % tiles_x) * QUAD);
+  const float oy = static_cast<float>((tile / tiles_x) * QUAD);
   const int seg_begin = starts[tile];
-  const int count = starts[tile + 1] - seg_begin;
-  const float* tile_rows = rows + static_cast<size_t>(seg_begin) * PW;
 
   float T = 1.0f;
   float acc[C];
@@ -65,36 +62,26 @@ composite_stream_chunks_kernel(const float* __restrict__ rows,
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   float asum = 0.0f;
   bool done = false;
+  forward_walk<PW, FWD_PASS, false>(
+      rows + static_cast<size_t>(seg_begin) * PW, starts[tile + 1] - seg_begin,
+      ox, oy, PixelBasis(pixel % QUAD, pixel / QUAD), NoCover(), hard, &T,
+      acc, &asum, &done);
 
-  for (int b0 = 0; b0 < count; b0 += BATCH) {
-    const int nb = min(BATCH, count - b0);
-    // barrier before the staging buffers are overwritten; with hard cutoffs
-    // it also counts the pixels still blending
-    if (hard) {
-      if (__syncthreads_count(!done) == 0) break;
-    } else {
-      __syncthreads();
-    }
-    stage_rows<PW>(tile_rows + static_cast<size_t>(b0) * PW, nb, ox, oy,
-                   s_rows, s_coef, tid, PX);
-    if (!done) {
-      blend_staged<PW>(s_rows, s_coef, nb, basis, hard, &T, acc, &asum, &done);
-    }
-  }
-
-  float* o = out + static_cast<size_t>(tile) * (C + 1) * PX + tid;
+  float* o = out + static_cast<size_t>(tile) * (C + 1) * BLOCK_PX +
+             pixel_after_walk();
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    o[c * PX] = c < 3 ? acc[c] + bg[c] * T : acc[c];
+    o[c * BLOCK_PX] = c < 3 ? acc[c] + bg[c] * T : acc[c];
   }
-  o[C * PX] = asum;
+  o[C * BLOCK_PX] = asum;
 }
 
 }  // namespace
 
-// rows [B, PW], starts [T + 1], bg [3] -> out [T, PW - 8 + 1, 256]. Launches
-// on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a row width the kernel does not take.
+// rows [B, PW] (16-byte aligned), starts [T + 1], bg [3] -> out
+// [T, PW - 8 + 1, 256]. Launches on `stream`; returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for a row width the kernel does not
+// take.
 extern "C" int ls4d_composite_stream_chunks(const float* rows,
                                             const int* starts,
                                             const float* bg, float* out,
@@ -103,7 +90,7 @@ extern "C" int ls4d_composite_stream_chunks(const float* rows,
                                             cudaStream_t stream) {
   if (num_tiles <= 0) return cudaSuccess;
   const dim3 grid(num_tiles);
-  const dim3 block(PX);
+  const dim3 block(BLOCK_PX);
   switch (pw) {
     case 16:
       composite_stream_chunks_kernel<16><<<grid, block, 0, stream>>>(

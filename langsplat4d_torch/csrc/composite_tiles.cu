@@ -7,14 +7,20 @@
 // accum[t, 0:C, px] (features; bg * T added to rgb) and accum[t, C, px]
 // (the alpha sum, 1 - T).
 //
-// Design: one block per 16x16 tile, one thread per pixel. Rows are held
-// row-major, [T, K, PW], so a batch of a tile's rows is one contiguous run
-// that the block stages through shared memory with coalesced loads (the TPU
-// kernel keeps [T, PW, K] to put K on its lanes). Each pixel walks front to
-// back and, with hard cutoffs, stops for good before the first Gaussian that
-// would take T below 1e-4; the block leaves its list once
-// __syncthreads_count shows every pixel done or counts[t] is reached, so
-// padded slots are never read.
+// Design: one block of 256 threads per 16x16 tile, one thread per pixel,
+// over rows[t, 0:min(counts[t], K)] with the forward walk of
+// composite_common.cuh, the stream-layout forward's, so padded slots are
+// never read. Rows are held row-major, [T, K, PW], so a pass over a tile's
+// rows is one contiguous run (the TPU kernel keeps [T, PW, K] to put K on
+// its lanes). The lists are cut from the sorted stream with no ellipse cull
+// (the JAX package's `bin_tiles` has none), so they carry rows that no pixel
+// of the tile blends: with hard cutoffs the walk's cover test is the tile
+// test (`quadrant_covered` with the whole tile as the rect), and only the
+// kept rows are compacted, in depth order, and blended; a dropped row is one
+// that every pixel would skip by the blend's own rule, so the output is the
+// same bit for bit. Each pixel stops for good before the first Gaussian
+// that would take T below 1e-4, and the block leaves its list once every
+// pixel has stopped.
 //
 // What bounds it: arithmetic, not bytes. A (Gaussian, pixel) pair costs one
 // expf and ~20 + 2C fp32 operations, against one PW-float row per Gaussian
@@ -27,28 +33,21 @@ namespace {
 
 using namespace ls4d;
 
-constexpr int TILE = 16;
-constexpr int PX = TILE * TILE;
-constexpr int BATCH = 256;   // rows staged per pass
-
+// Four blocks an SM at row width 16 (64 registers, no spill), with a kept
+// row's features loaded right after its tile test; three blocks with the
+// later gather were slower.
 template <int PW>
-__global__ void __launch_bounds__(PX)
+__global__ void __launch_bounds__(BLOCK_PX, PW == 16 ? 4 : 2)
 composite_tiles_kernel(const float* __restrict__ rows,
                        const int* __restrict__ counts,
                        const float* __restrict__ bg,
                        float* __restrict__ out,
                        int K, int tiles_x, int hard) {
   constexpr int C = PW - HDR;
-  __shared__ float s_rows[BATCH * PW];
-  __shared__ float s_coef[BATCH * 8];  // k0..k5, ln_op, unused
-
   const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float ox = static_cast<float>((tile % tiles_x) * TILE);
-  const float oy = static_cast<float>((tile / tiles_x) * TILE);
-  const PixelBasis basis(tid % TILE, tid / TILE);
-  const int count = min(counts[tile], K);
-  const float* tile_rows = rows + static_cast<size_t>(tile) * K * PW;
+  const int pixel = block_pixel(threadIdx.x);
+  const float ox = static_cast<float>((tile % tiles_x) * QUAD);
+  const float oy = static_cast<float>((tile / tiles_x) * QUAD);
 
   float T = 1.0f;
   float acc[C];
@@ -56,43 +55,34 @@ composite_tiles_kernel(const float* __restrict__ rows,
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   float asum = 0.0f;
   bool done = false;
+  const RectCover cover{ox, oy, ox, oy, hard != 0};
+  forward_walk<PW, FWD_PASS, true>(
+      rows + static_cast<size_t>(tile) * K * PW, min(counts[tile], K), ox, oy,
+      PixelBasis(pixel % QUAD, pixel / QUAD), cover, hard, &T, acc, &asum,
+      &done);
 
-  for (int b0 = 0; b0 < count; b0 += BATCH) {
-    const int nb = min(BATCH, count - b0);
-    // barrier before the staging buffers are overwritten; with hard cutoffs
-    // it also counts the pixels still blending
-    if (hard) {
-      if (__syncthreads_count(!done) == 0) break;
-    } else {
-      __syncthreads();
-    }
-    stage_rows<PW>(tile_rows + static_cast<size_t>(b0) * PW, nb, ox, oy,
-                   s_rows, s_coef, tid, PX);
-    if (!done) {
-      blend_staged<PW>(s_rows, s_coef, nb, basis, hard, &T, acc, &asum, &done);
-    }
-  }
-
-  float* o = out + static_cast<size_t>(tile) * (C + 1) * PX + tid;
+  float* o = out + static_cast<size_t>(tile) * (C + 1) * BLOCK_PX +
+             pixel_after_walk();
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    o[c * PX] = c < 3 ? acc[c] + bg[c] * T : acc[c];
+    o[c * BLOCK_PX] = c < 3 ? acc[c] + bg[c] * T : acc[c];
   }
-  o[C * PX] = asum;
+  o[C * BLOCK_PX] = asum;
 }
 
 }  // namespace
 
-// rows [T, K, PW], counts [T], bg [3] -> out [T, PW - 8 + 1, 256]. Launches
-// on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a row width the kernel does not take.
+// rows [T, K, PW] (16-byte aligned), counts [T], bg [3] -> out
+// [T, PW - 8 + 1, 256]. Launches on `stream`; returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for a row width the kernel does not
+// take.
 extern "C" int ls4d_composite_tiles(const float* rows, const int* counts,
                                     const float* bg, float* out,
                                     int num_tiles, int K, int tiles_x, int pw,
                                     int hard_cutoffs, cudaStream_t stream) {
   if (num_tiles <= 0) return cudaSuccess;
   const dim3 grid(num_tiles);
-  const dim3 block(PX);
+  const dim3 block(BLOCK_PX);
   switch (pw) {
     case 16:
       composite_tiles_kernel<16><<<grid, block, 0, stream>>>(

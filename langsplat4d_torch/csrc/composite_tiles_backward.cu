@@ -37,7 +37,7 @@ using namespace ls4d;
 // blocks (left alone it takes 71 for the stream layout's kernel, and the SM
 // holds three); the wider rows need more registers than that.
 template <int PW>
-__global__ void __launch_bounds__(BWD_PX, PW == 16 ? 4 : 1)
+__global__ void __launch_bounds__(BLOCK_PX, PW == 16 ? 4 : 1)
 composite_tiles_backward_kernel(const float* __restrict__ rows,
                                 const int* __restrict__ counts,
                                 const float* __restrict__ g_out,
@@ -50,11 +50,12 @@ composite_tiles_backward_kernel(const float* __restrict__ rows,
   const size_t first = static_cast<size_t>(tile) * K * PW;
   backward_walk<PW>(
       rows + first, min(counts[tile], K), K,
-      static_cast<float>((tile % tiles_x) * BWD_TILE),
-      static_cast<float>((tile / tiles_x) * BWD_TILE),
-      g_out + static_cast<size_t>(tile) * (C + 1) * BWD_PX +
-          backward_pixel(tid),
-      total_in[static_cast<size_t>(tile) * BWD_PX + backward_pixel(tid)], d_rows + first,
+      static_cast<float>((tile % tiles_x) * QUAD),
+      static_cast<float>((tile / tiles_x) * QUAD),
+      g_out + static_cast<size_t>(tile) * (C + 1) * BLOCK_PX +
+          block_pixel(tid),
+      total_in[static_cast<size_t>(tile) * BLOCK_PX + block_pixel(tid)],
+      d_rows + first,
       hard);
 }
 
@@ -70,7 +71,7 @@ extern "C" int ls4d_composite_tiles_backward(
     int pw, int hard_cutoffs, cudaStream_t stream) {
   if (num_tiles <= 0) return cudaSuccess;
   const dim3 grid(num_tiles);
-  const dim3 block(BWD_PX);
+  const dim3 block(BLOCK_PX);
   switch (pw) {
     case 16:
       composite_tiles_backward_kernel<16><<<grid, block, 0, stream>>>(

@@ -59,12 +59,17 @@ tile's pixels in another order than their plain versions (warp shuffles) and
 multiply by an approximate reciprocal where those divide by 1 - alpha, so
 they agree to rounding only.
 
-Two pieces of the kernels' logic have plain twins here for the CPU tests:
-`quadrant_cover_plain` (the stream kernel composites a 32-px tile as four
-16x16 quadrants, each staging only the rows the test keeps for it; with
-`composite_stream_quadrants_plain`, the whole scheme) and
-`warp_transpose_sum_plain` (the lane schedule of the backward kernels' warp
-reduction).
+The pieces of the kernels' logic that the plain versions do not exercise
+have plain twins here for the CPU tests: the cover tests of the forward
+walk (`quadrant_cover_plain`: the stream kernel composites a 32-px tile as
+four 16x16 quadrants, each blending only the rows the test keeps for it,
+with `composite_stream_quadrants_plain` the whole scheme;
+`tile_cover_plain`, the same test against a 16-px tile, which the
+tile-list kernel applies, with `composite_tiles_plain(cull=True)` its
+scheme; `composite_cells_plain(cull=True)` applies it to the cell rows and
+counts the pairs that the cell kernel's bound charges), the cell rows' rect
+decode (`rect_decode_plain`) and `warp_transpose_sum_plain` (the lane
+schedule of the backward kernels' warp reduction).
 """
 from __future__ import annotations
 
@@ -246,8 +251,7 @@ def _check_on_device(device, **tensors):
 
 
 def _check_aligned(**tensors):
-    """The stream kernel and the backward kernels move rows 16 bytes at a
-    time."""
+    """The kernels move rows 16 bytes at a time."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -302,6 +306,7 @@ def composite_tiles(rows: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"composite_tiles: no kernel for {rows.device}")
     _check_list_args(rows, counts, tile_size)
     _check_bg(bg, rows.device)
+    _check_aligned(rows=rows)
     num_tiles, k, pw = rows.shape
     out = torch.empty((num_tiles, pw - HDR + 1, tile_size * tile_size),
                       dtype=torch.float32, device=rows.device)
@@ -393,6 +398,7 @@ def composite_stream_chunks(rows: torch.Tensor, starts: torch.Tensor,
             f"composite_stream_chunks: no kernel for {rows.device}")
     num_tiles = _check_segment_args(rows, starts, tile_size)
     _check_bg(bg, rows.device)
+    _check_aligned(rows=rows)
     pw = rows.shape[1]
     out = torch.empty((num_tiles, pw - HDR + 1, tile_size * tile_size),
                       dtype=torch.float32, device=rows.device)
@@ -464,6 +470,7 @@ def composite_cells(rows: torch.Tensor, cell_starts: torch.Tensor,
     n_cells = _check_segment_args(rows, cell_starts, tile_size,
                                   what="cell_starts")
     _check_bg(bg, rows.device)
+    _check_aligned(rows=rows)
     if cell < 1 or cells_x < 1:
         raise ValueError(f"cell {cell} and cells_x {cells_x} must be >= 1")
     pw = rows.shape[1]
@@ -639,36 +646,26 @@ def composite_stream_plain(rows: torch.Tensor, starts: torch.Tensor,
     return img[:, :height, :width].contiguous()
 
 
-QUAD = 16                      # the stream kernel's block: a 16x16 quadrant
+QUAD = 16                      # the forward walk's block: 16x16 pixels
 LN_ALPHA_MIN = -5.5412635      # ln(1/255)
 COVER_MARGIN_ABS = 1e-2
 COVER_MARGIN_REL = 4e-6
 
 
-def quadrant_cover_plain(rows: torch.Tensor, ox: torch.Tensor,
-                         oy: torch.Tensor, hard_cutoffs: bool = True
-                         ) -> torch.Tensor:
-    """The stream kernel's quadrant test (`quadrant_covered` in
-    csrc/composite_stream.cu) in plain PyTorch: rows [M, PW] of 32-px tiles
-    with origins ox, oy [M] -> keep [M, 4] bool, quadrant q = 2 qy + qx
-    being the 16x16 pixels from tile-local (16 qx, 16 qy).
+def _rect_cover(rows: torch.Tensor, ox, oy, x0, y0) -> torch.Tensor:
+    """`quadrant_covered` of csrc/composite_common.cuh in plain PyTorch: may
+    a pixel of the 16x16 rect whose first pixel is (x0, y0), in the tile at
+    (ox, oy), blend a row under hard cutoffs? rows [M, PW]; the origins are
+    tensors that broadcast against [M] -> keep, of the broadcast shape.
 
-    A row is dropped for a quadrant only if every pixel of the quadrant
-    would skip it under hard cutoffs (alpha < 1/255): the least value over
-    the quadrant's pixel rect of the conic quadratic q (power = -q / 2; on
-    an edge of the rect unless the centre is inside) leaves power + ln_op
-    below ln(1/255) by more than a margin, COVER_MARGIN_ABS plus
-    COVER_MARGIN_REL times the magnitude of the terms that the blend's
-    coefficient form sums the power from (its ~12 roundings, 6e-8 each, are
-    relative to that). A conic that is not positive definite is kept;
-    without hard cutoffs every pixel blends every row, so all are kept."""
-    m = rows.shape[0]
-    keep = torch.ones((m, 4), dtype=torch.bool, device=rows.device)
-    if not hard_cutoffs:
-        return keep
+    A row is dropped only if the least value over the rect of the conic
+    quadratic q (power = -q / 2; on an edge of the rect unless the centre
+    is inside) leaves power + ln_op below ln(1/255) by more than a margin,
+    COVER_MARGIN_ABS plus COVER_MARGIN_REL times the magnitude of the terms
+    that the blend's coefficient form sums the power from (its ~12
+    roundings, 6e-8 each, are relative to that). A conic that is not
+    positive definite, or not a number, is kept."""
     cx, cy, a, b, c, ln_op = (rows[:, i] for i in range(6))
-    ox = torch.as_tensor(ox, dtype=torch.float32, device=rows.device)
-    oy = torch.as_tensor(oy, dtype=torch.float32, device=rows.device)
     span = float(2 * QUAD)
     dx = (cx - ox).abs() + span
     dy = (cy - oy).abs() + span
@@ -682,19 +679,59 @@ def quadrant_cover_plain(rows: torch.Tensor, ox: torch.Tensor,
         e = torch.minimum(torch.maximum(at, lo), hi) - centre
         return a * d * d + 2.0 * b * d * e + c * e * e
 
+    x1, y1 = x0 + (QUAD - 1.0), y0 + (QUAD - 1.0)
+    least = torch.minimum(
+        torch.minimum(edge_min(a, b, c, x0 - cx, y0, y1, cy),
+                      edge_min(a, b, c, x1 - cx, y0, y1, cy)),
+        torch.minimum(edge_min(c, b, a, y0 - cy, x0, x1, cx),
+                      edge_min(c, b, a, y1 - cy, x0, x1, cx)))
+    inside = (cx >= x0) & (cx <= x1) & (cy >= y0) & (cy <= y1)
+    least = torch.where(inside, torch.zeros_like(least), least)
+    return ~(definite & (least > limit))
+
+
+def quadrant_cover_plain(rows: torch.Tensor, ox: torch.Tensor,
+                         oy: torch.Tensor, hard_cutoffs: bool = True
+                         ) -> torch.Tensor:
+    """The stream kernel's quadrant test in plain PyTorch: rows [M, PW] of
+    32-px tiles with origins ox, oy [M] -> keep [M, 4] bool, quadrant
+    q = 2 qy + qx being the 16x16 pixels from tile-local (16 qx, 16 qy).
+    A row is dropped for a quadrant only if every pixel of the quadrant
+    would skip it under hard cutoffs (alpha < 1/255; see `_rect_cover`);
+    without hard cutoffs every pixel blends every row, so all are kept."""
+    m = rows.shape[0]
+    keep = torch.ones((m, 4), dtype=torch.bool, device=rows.device)
+    if not hard_cutoffs:
+        return keep
+    ox = torch.as_tensor(ox, dtype=torch.float32, device=rows.device)
+    oy = torch.as_tensor(oy, dtype=torch.float32, device=rows.device)
     for q in range(4):
-        x0 = ox + float(QUAD * (q % 2))
-        y0 = oy + float(QUAD * (q // 2))
-        x1, y1 = x0 + (QUAD - 1.0), y0 + (QUAD - 1.0)
-        least = torch.minimum(
-            torch.minimum(edge_min(a, b, c, x0 - cx, y0, y1, cy),
-                          edge_min(a, b, c, x1 - cx, y0, y1, cy)),
-            torch.minimum(edge_min(c, b, a, y0 - cy, x0, x1, cx),
-                          edge_min(c, b, a, y1 - cy, x0, x1, cx)))
-        inside = (cx >= x0) & (cx <= x1) & (cy >= y0) & (cy <= y1)
-        least = torch.where(inside, torch.zeros_like(least), least)
-        keep[:, q] = ~(definite & (least > limit))
+        keep[:, q] = _rect_cover(rows, ox, oy, ox + float(QUAD * (q % 2)),
+                                 oy + float(QUAD * (q // 2)))
     return keep
+
+
+def tile_cover_plain(rows: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
+                     hard_cutoffs: bool = True) -> torch.Tensor:
+    """The tile-list kernel's tile test in plain PyTorch:
+    `_rect_cover` with the 16x16 tile as the rect. rows [M, PW], tile
+    origins ox, oy broadcasting against [M] -> keep bool; all kept without
+    hard cutoffs."""
+    ox = torch.as_tensor(ox, dtype=torch.float32, device=rows.device)
+    oy = torch.as_tensor(oy, dtype=torch.float32, device=rows.device)
+    if not hard_cutoffs:
+        shape = torch.broadcast_shapes(ox.shape, oy.shape, rows.shape[:1])
+        return torch.ones(shape, dtype=torch.bool, device=rows.device)
+    return _rect_cover(rows, ox, oy, ox, oy)
+
+
+def rect_decode_plain(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cell row's packed tile corner v = x + 256 y -> (x, y) as the cell
+    kernel decodes it, and its plain version with it: y = floor(v / 256) by
+    a multiply with 1/256 and x = v - 256 y, both exact for the integers up
+    to 65535 that the rows hold (no fmod, no division)."""
+    y = torch.floor(v * (1.0 / 256.0))
+    return v - 256.0 * y, y
 
 
 def composite_stream_quadrants_plain(
@@ -781,28 +818,37 @@ def warp_transpose_sum_plain(values: torch.Tensor) -> torch.Tensor:
 def composite_cells_plain(rows: torch.Tensor, cell_starts: torch.Tensor,
                           bg: torch.Tensor, *, cells_x: int, cell: int = 8,
                           tile_size: int = 16, hard_cutoffs: bool = True,
+                          cull: bool = False,
                           stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch version of the cell-list kernel: for every tile the
     candidates of its cell whose rect covers it, in the list's order, become
     that tile's segment, and the segments are blended as the stream's are.
-    `stats` (see `_blend_plain`) counts the covered rows only, as the kernel's
-    pixel loop sees no other; stats["rect_tests"] becomes the number of
-    (tile, candidate) pairs."""
+    With `cull` (and hard cutoffs) a covered row is also dropped where the
+    tile test (`tile_cover_plain`) finds that no pixel of the tile can blend
+    it: the same image bit for bit from fewer pairs, the count the kernel's
+    bound charges (the kernel itself tests the rect only). `stats` (see
+    `_blend_plain`) counts the rows that reach the blend only;
+    stats["rect_tests"] becomes the number of (tile, candidate) pairs,
+    stats["covered_rows"] the pairs whose rect covers the tile and
+    stats["kept_rows"] those the blend sees."""
     dev = rows.device
     n_cells = cell_starts.numel() - 1
     bounds = cell_starts.tolist()
     lt = torch.arange(cell * cell, device=dev)
     txs, tys, picks, counts = [], [], [], []
+    n_covered = 0
     for ci in range(n_cells):
         cand = rows[bounds[ci]:bounds[ci + 1]]
         tx = (ci % cells_x) * cell + lt % cell                  # [cell^2]
         ty = (ci // cells_x) * cell + lt // cell
-        min_x = torch.fmod(cand[:, 6], 256.0)
-        min_y = (cand[:, 6] - min_x) / 256.0
-        max_x = torch.fmod(cand[:, 7], 256.0)
-        max_y = (cand[:, 7] - max_x) / 256.0
+        min_x, min_y = rect_decode_plain(cand[:, 6])
+        max_x, max_y = rect_decode_plain(cand[:, 7])
         covered = ((min_x <= tx[:, None]) & (tx[:, None] < max_x)
                    & (min_y <= ty[:, None]) & (ty[:, None] < max_y))
+        n_covered += int(covered.sum())
+        if cull and hard_cutoffs:
+            covered &= tile_cover_plain(cand, (tx * tile_size)[:, None],
+                                        (ty * tile_size)[:, None])
         picks.append(bounds[ci] + covered.nonzero()[:, 1])  # (tile, depth)
         counts.append(covered.sum(1))
         txs.append(tx)
@@ -815,27 +861,40 @@ def composite_cells_plain(rows: torch.Tensor, cell_starts: torch.Tensor,
         _TileGrid(torch.cat(txs), torch.cat(tys), tile_size), bg,
         hard_cutoffs, stats)
     if stats is not None:
-        stats["rect_tests"] = rows.shape[0] * cell * cell
+        stats.update(rect_tests=rows.shape[0] * cell * cell,
+                     covered_rows=n_covered, kept_rows=int(starts[-1]))
     return out.reshape(n_cells, cell * cell, out.shape[1], out.shape[2])
 
 
 def composite_tiles_plain(rows: torch.Tensor, counts: torch.Tensor,
                           bg: torch.Tensor, *, tiles_x: int,
                           tile_size: int = 16,
-                          hard_cutoffs: bool = True,
+                          hard_cutoffs: bool = True, cull: bool = False,
                           stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch version of the tile-list forward kernel (`stats`: see
-    `_blend_plain`)."""
+    `_blend_plain`). With `cull` (and hard cutoffs) a row of a tile's list
+    is dropped where the tile test (`tile_cover_plain`) finds that no pixel
+    of the tile can blend it: the kernel's scheme, whose output is the same
+    bit for bit; `stats` then counts the pairs that scheme evaluates and
+    stats["kept_rows"] the rows it keeps."""
     num_tiles, k_cap, pw = rows.shape
     kmax = min(int(counts.max()), k_cap) if num_tiles else 0
+    grid = _TileGrid.regular(num_tiles, tiles_x, tile_size, rows.device)
+    kept = torch.zeros((), dtype=torch.int64, device=rows.device)
 
     def row_at(k):
-        return rows[:, k], (k < counts)[:, None]
+        nonlocal kept
+        r, valid = rows[:, k], (k < counts)[:, None]
+        if cull and hard_cutoffs:
+            valid = valid & tile_cover_plain(r, grid.ox[:, 0],
+                                             grid.oy[:, 0])[:, None]
+        kept = kept + valid.sum()
+        return r, valid
 
-    acc, asum = _blend_plain(
-        row_at, kmax,
-        _TileGrid.regular(num_tiles, tiles_x, tile_size, rows.device),
-        pw - HDR, bg, hard_cutoffs, stats)
+    acc, asum = _blend_plain(row_at, kmax, grid, pw - HDR, bg, hard_cutoffs,
+                             stats)
+    if stats is not None:
+        stats["kept_rows"] = int(kept)
     return torch.cat([acc, asum[None]], dim=0).permute(1, 0, 2).contiguous()
 
 

@@ -122,7 +122,7 @@ def test_stream_train_kernel_launches_are_counted_and_checked(cuda_device):
 
 
 @pytest.mark.parametrize("case", cell_cases(),
-                         ids=lambda c: f"hard{int(c[0])}-pw{c[1]}")
+                         ids=lambda c: f"hard{int(c[0])}-pw{c[1]}-{c[2]}")
 def test_cell_kernel_matches_plain(cuda_device, case):
     assert compare_cell_case(*case, device=cuda_device, seed=1) <= 3e-5
 

@@ -152,9 +152,9 @@ def test_warp_transpose_sum_in_float32_is_a_fixed_order():
 
 
 @pytest.mark.parametrize("name,source", [
-    ("QUAD", "composite_stream.cu"),
-    ("COVER_MARGIN_ABS", "composite_stream.cu"),
-    ("COVER_MARGIN_REL", "composite_stream.cu"),
+    ("QUAD", "composite_common.cuh"),
+    ("COVER_MARGIN_ABS", "composite_common.cuh"),
+    ("COVER_MARGIN_REL", "composite_common.cuh"),
     ("LN_ALPHA_MIN", "composite_common.cuh"),
     ("ALPHA_MIN", "composite_common.cuh"),
     ("T_EPS", "composite_common.cuh"),
