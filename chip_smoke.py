@@ -73,9 +73,36 @@ Phases, each failing the run on error:
      bound charges the pairs left once the tile test drops the covered rows
      that no pixel of the tile blends, counted by the plain twin of that
      scheme, whose image must be the plain version's with the same live
-     pairs.
+     pairs;
+ 19. a HyperNeRF scene on disk, written with the port's own writers: 48
+     frames at 960x536 on a quarter orbit, rendered from 200k seeded
+     Gaussians, a 100k-point initial cloud, language ground truth of 32
+     segment features; read back through the port's Scene, every decoded
+     image equal to the array written;
+ 20. training(cfg) on that scene with configs/hypernerf/default.py at full
+     width, the depth cuts printed (300/100/300/100 iterations, densify,
+     prune and opacity reset firing in both base stages): it/s, wall time
+     and CUDA-event step times per stage beside phase 8's step-only it/s,
+     num_active after each densification event, the stream switch, the
+     batch build's first-epoch and cached times, peak memory; the training
+     kernels' launches must equal the camera renders of the steps, and the
+     fine-base loss of its last 10 iterations must be at most 0.6x that of
+     its first 10; then save_scene, load_trained_model and render_set of 10
+     frames of the saved model, whose frame 0 the render kernel must
+     composite as its plain version does on the same rows;
+ 21. the first 5 coarse-base iterations of the loop with the kernels and
+     with their plain versions: every step's gradients and the Adam
+     moments held to rtol 2e-3 / atol 2e-4 of each leaf's largest entry,
+     parameters too where the gradient is at least a tenth of the leaf's
+     largest and elsewhere within what that bound allows through Adam's
+     steps; two identical runs of 5 iterations of coarse-base,
+     coarse-lang and fine-base with the loop's deterministic setting (and
+     fine-base with the deterministic algorithms on): the largest
+     difference per leaf; 20 iterations of coarse-base and of fine-base
+     with the deterministic algorithms on and off, in turns.
 Prints one JSON line describing the kernels (each with its time beside the
-least time the card could take for the same work), the card's name and
+least time the card could take for the same work, and its launches in
+phase 20's loop as `loop_launches`), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
 """
@@ -89,7 +116,6 @@ import shutil
 import subprocess
 import sys
 import time
-import types
 
 import numpy as np
 import torch
@@ -684,17 +710,6 @@ def bench_workload(device, frames=60, n=200_000, hw=(1014, 1352)):
     return gs, dcfg, net, aabb, views
 
 
-# the optimisation parameters the training-step workload takes its learning
-# rates from (the JAX package's OptimizationConfig defaults, restated)
-OPTIM = types.SimpleNamespace(
-    position_lr_init=0.00016, position_lr_final=0.0000016,
-    position_lr_delay_mult=0.01, position_lr_max_steps=20_000,
-    deformation_lr_init=0.00016, deformation_lr_final=0.000016,
-    deformation_lr_delay_mult=0.01, grid_lr_init=0.0016,
-    grid_lr_final=0.00016, feature_lr=0.0025, opacity_lr=0.05,
-    scaling_lr=0.005, rotation_lr=0.001, language_feature_lr=0.0025)
-
-
 def train_camera(hw=(536, 960)):
     """The training-step workload's camera."""
     from langsplat4d_torch.data.cameras import HostCamera
@@ -709,6 +724,7 @@ def train_workload(device, n=100_000, hw=(536, 960), tile_capacity=512,
     16-px tiles, fine-lang, batch 1, random ground truth from a seed, a mask
     of ones, black background; `stream` trains on the stream layout instead
     of the tile lists. -> (state, step config, batch, bg)."""
+    from langsplat4d_torch.config import Config
     from langsplat4d_torch.field.deformation import (DeformConfig,
                                                      DeformNetwork)
     from langsplat4d_torch.render.raster import CameraParams, RasterSettings
@@ -742,7 +758,7 @@ def train_workload(device, n=100_000, hw=(536, 960), tile_capacity=512,
                               tile_capacity=tile_capacity,
                               stream_train=stream)
     cfg = StepConfig(settings=settings, dcfg=dcfg,
-                     lr_cfg=LRConfig.from_optim(OPTIM, 1.0),
+                     lr_cfg=LRConfig.from_optim(Config().optim, 1.0),
                      stage="fine-lang", no_dlang=False)
     return state, cfg, batch, torch.zeros(3, device=device)
 
@@ -1388,6 +1404,662 @@ def cell_scheme_report(rows, cell_starts, bg, kw, ref, phase=18):
     return needed
 
 
+# the scene on disk and the training loop (phases 19 to 21)
+LOOP_STAGE_ITERS = (300, 100, 300, 100)  # the preset's: 3000/1000/10000/10000
+# densify and prune fire at iterations 200 and 300 of both base stages, the
+# opacity reset once in each, at 200: both base stages count iterations from
+# 1, so any interval of 151-299 fires exactly once in each, and at 250 the
+# reset's recovery fills the last 10 iterations of fine-base, which the
+# loss check reads (PERF.md, section 6)
+LOOP_CUTS = dict(densify_from_iter=100, densification_interval=100,
+                 pruning_from_iter=100, min_points_for_prune=50_000,
+                 opacity_reset_interval=200)
+N_FEATURES = 32        # the language ground truth's segment features
+
+
+def write_scene(root, dev, frames=48, hw=(536, 960), n_true=200_000,
+                n_init=100_000, seed=19):
+    """Phase 19's writer: a HyperNeRF (nerfies) scene in `root`, written
+    with the port's own writers. `frames` views of a seeded
+    `realistic_gaussians(n_true)` set on a quarter orbit (radius 4.5, the
+    bench's), time = frame / (frames - 1), rendered by the port on `dev` at
+    `hw` (the rgb/2x size of a HyperNeRF vrig capture at 960x536); the
+    initial cloud is a seeded subset of `n_init` true centres with noise and
+    their colours; each true Gaussian carries one of 32 seeded unit
+    features, that of the nearest of 32 seeded positions, and `_s.npy`
+    holds, at every level, the per-pixel argmax of the rendered language
+    image against the 32 features (-1 where the image's norm is under 0.2).
+    Returns {frame id: the uint8 image written}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from langsplat4d_torch.core.sh import C0
+    from langsplat4d_torch.core.transforms import focal2fov
+    from langsplat4d_torch.data.cameras import HostCamera
+    from langsplat4d_torch.data.png import png_bytes
+    from langsplat4d_torch.data.readers import store_ply
+    from langsplat4d_torch.field.deformation import (DeformConfig,
+                                                     DeformNetwork)
+    from langsplat4d_torch.render.driver import to8b
+    from langsplat4d_torch.render.pipeline import render
+    from langsplat4d_torch.render.raster import RasterSettings
+    from langsplat4d_torch.utils.synth import realistic_gaussians
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    gs = realistic_gaussians(n_true, lang_dim=3, seed=seed, device=dev)
+    feats = rng.normal(size=(N_FEATURES, 3)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    anchors = torch.from_numpy(rng.uniform(-1.2, 1.2, size=(N_FEATURES, 3))
+                               .astype(np.float32)).to(dev)
+    near = torch.cdist(gs.xyz, anchors).argmin(1)
+    f_dev = torch.from_numpy(feats).to(dev)
+    gs.language_feature = torch.where(gs.active_mask()[:, None], f_dev[near],
+                                      0.0)
+    os.makedirs(os.path.join(root, "camera"), exist_ok=True)
+    os.makedirs(os.path.join(root, "rgb", "2x"), exist_ok=True)
+    lf_dir = os.path.join(root, "language_features")
+    os.makedirs(lf_dir, exist_ok=True)
+    ids = [f"{i:06d}" for i in range(frames)]
+    for name, obj in (
+            ("dataset.json", {"ids": ids, "val_ids": [], "train_ids": ids}),
+            ("metadata.json", {iid: {"camera_id": 0, "warp_id": i,
+                                     "appearance_id": 0}
+                               for i, iid in enumerate(ids)}),
+            ("scene.json", {"near": 0.1, "far": 10.0, "scale": 1.0,
+                            "center": [0.0, 0.0, 0.0]})):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(obj, f)
+    focal = 2 * (W / 2) / np.tan(0.5)     # full-resolution focal: fovx 1.0
+    settings = RasterSettings(image_height=H, image_width=W, sh_degree=3)
+    net = DeformNetwork(DeformConfig(), torch.Generator().manual_seed(seed))
+    aabb = torch.tensor([[2.6] * 3, [-2.6] * 3], device=dev)
+    bg = torch.ones(3, device=dev)       # the presets' white background
+    written, pngs = {}, []
+    for i, iid in enumerate(ids):
+        ang = 0.5 * np.pi * i / (frames - 1)
+        c = np.array([4.5 * np.sin(ang), 0.0, -4.5 * np.cos(ang)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0.0, 1.0, 0.0], z)
+        x /= np.linalg.norm(x)
+        r_w2c = np.stack([x, np.cross(z, x), z])
+        with open(os.path.join(root, "camera", f"{iid}.json"), "w") as f:
+            json.dump({"orientation": r_w2c.tolist(), "position": c.tolist(),
+                       "focal_length": focal,
+                       "principal_point": [W, H], "skew": 0.0,
+                       "pixel_aspect_ratio": 1.0,
+                       "image_size": [2 * W, 2 * H]}, f)
+        cam = HostCamera(R=r_w2c.T, T=-c @ r_w2c.T,
+                         fovx=focal2fov(focal / 2, W),
+                         fovy=focal2fov(focal / 2, H), width=W, height=H)
+        t = i / (frames - 1)
+        with torch.no_grad():
+            out = render(settings, DeformConfig(), "coarse-lang",
+                         cam.camera_params(dev), t, gs, net, aabb, bg)
+            lang = out["language_feature_image"]            # [3, H, W]
+            seg = torch.einsum("chw,kc->khw", lang, f_dev).argmax(0)
+            seg = torch.where(lang.norm(dim=0) < 0.2, -1, seg)
+        img = to8b(out["render"].cpu().numpy()).transpose(1, 2, 0)
+        written[iid] = np.ascontiguousarray(img)
+        rid = i + 1       # train, test and video cameras all read frame + 1
+        np.save(os.path.join(lf_dir, f"{rid:06d}_s.npy"),
+                np.stack([seg.to(torch.int16).cpu().numpy()] * 4))
+        np.save(os.path.join(lf_dir, f"{rid:06d}_f.npy"), feats)
+        pngs.append((os.path.join(root, "rgb", "2x", f"{iid}.png"),
+                     written[iid]))
+
+    def write_png(item):
+        with open(item[0], "wb") as f:
+            f.write(png_bytes(item[1]))
+    with ThreadPoolExecutor() as ex:
+        list(ex.map(write_png, pngs))
+    n = gs.num_active
+    pick = np.sort(rng.choice(n, size=min(n_init, n), replace=False))
+    xyz = gs.xyz[:n].cpu().numpy()[pick]
+    xyz = xyz + rng.normal(0.0, 0.01, size=xyz.shape).astype(np.float32)
+    rgb = np.clip(gs.features_dc[:n, 0].cpu().numpy()[pick] * C0 + 0.5, 0, 1)
+    store_ply(os.path.join(root, "points3D_downsample2.ply"), xyz,
+              np.round(rgb * 255.0))
+    return written
+
+
+def scene_phase(dev, root, **kw):
+    """Phase 19: write the scene and read it back through the port's Scene;
+    every decoded image must equal the uint8 array written. Prints the
+    decode time per image, of the files written (filter None) and of one
+    image re-encoded with the Paeth filter on every row."""
+    from langsplat4d_torch.data.png import decode_png, png_bytes, read_png
+    from langsplat4d_torch.data.scene import Scene
+    t0 = time.perf_counter()
+    written = write_scene(root, dev, **kw)
+    write_s = time.perf_counter() - t0
+    scene = Scene(root)
+    cams = scene.getVideoCameras()
+    t0 = time.perf_counter()
+    for i in range(len(cams)):
+        cams[i].image
+    decode_ms = (time.perf_counter() - t0) / len(cams) * 1e3
+    for i in range(len(cams)):
+        cam = cams[i]
+        raw = read_png(cam.image_path)
+        want = written[os.path.splitext(cam.image_name)[0]]
+        if not (np.array_equal(raw, want) and np.array_equal(
+                cam.image, want.transpose(2, 0, 1).astype(np.float32)
+                / np.float32(255.0))):
+            raise AssertionError(f"{cam.image_name} decodes differently")
+    first = next(iter(written.values()))
+    data = png_bytes(first, 4)          # Paeth, PIL's usual choice
+    t0 = time.perf_counter()
+    back = decode_png(data)
+    paeth_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(back, first):
+        raise AssertionError("the Paeth image decodes differently")
+    h, w = first.shape[:2]
+    print(f"[19] scene written in {write_s:.1f} s: {len(written)} frames at "
+          f"{w}x{h}, {len(scene.point_cloud.points)} initial points, "
+          f"splits train {len(scene.getTrainCameras())} / test "
+          f"{len(scene.getTestCameras())} / video {len(cams)}; extent "
+          f"{scene.cameras_extent:.4f}; every decoded image equals the "
+          f"array written; decode {decode_ms:.2f} ms/image (load_image, "
+          f"filter None), {paeth_ms:.1f} ms for one image with the Paeth "
+          f"filter on every row", flush=True)
+    return scene
+
+
+def loop_config(root, model_path, iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS,
+                hidden=None, quiet=False):
+    """configs/hypernerf/default.py through the port's config loader, on the
+    scene at `root`, with the depth cuts (each printed on a line of its
+    own). `hidden` overrides deformation fields (a CPU rehearsal narrows
+    the network with it; the card runs the preset's widths)."""
+    from langsplat4d_torch.config import (Config, apply_overrides,
+                                          load_py_config)
+    cfg = Config()
+    apply_overrides(cfg, load_py_config(os.path.join(
+        REPO, "configs", "hypernerf", "default.py")))
+    cfg.model.source_path = root
+    cfg.model.model_path = model_path
+    cfg.model.language_features_name = "language_features"
+    cfg.model.feature_level = 1
+    cfg.runtime.watchdog_execv = False      # a trip fails the run
+    cfg.extras.test_iterations = []
+    cfg.extras.save_iterations = []
+    cfg.extras.checkpoint_iterations = []
+    names = ("coarse_base_iterations", "coarse_lang_iterations",
+             "fine_base_iterations", "fine_lang_iterations")
+    for k, v in list(zip(names, iters)) + list(cuts.items()):
+        if not quiet:
+            print(f"[20] depth cut: optim.{k} {getattr(cfg.optim, k)} -> "
+                  f"{v}", flush=True)
+        setattr(cfg.optim, k, v)
+    for k, v in (hidden or {}).items():
+        setattr(cfg.hidden, k, v)
+    return cfg
+
+
+class LoopProbe:
+    """Wraps the loop's train_step_packed, build_batch,
+    scene_reconstruction, maybe_stream_switch and the densification
+    functions while it is entered: CUDA events around every step (nothing
+    is synchronised until the end), the step losses as tensors, the host
+    time of every batch build with whether it missed the GT cache, the wall
+    time of every stage, and `events`: (stage, iteration, what, num_active
+    after it) for each densify, prune, grow, opacity reset and stream
+    switch."""
+    DENSIFY = dict(densify="densify", prune="prune", grow="grow",
+                   reset_opacity="reset")
+
+    def __init__(self, dev):
+        from langsplat4d_torch.train import loop
+        self.loop, self.dev = loop, dev
+        self.steps, self.builds, self.stages, self.events = [], [], [], []
+        self.stage, self.iteration = None, 0
+
+    def __enter__(self):
+        from langsplat4d_torch.data import gt_cache
+        loop, on_card = self.loop, self.dev.type == "cuda"
+        self.saved = (loop.train_step_packed, loop.build_batch,
+                      loop.scene_reconstruction, loop.maybe_stream_switch)
+        self.saved_d = {n: getattr(loop.D, n) for n in self.DENSIFY}
+        step, build, stage_fn, switch = self.saved
+
+        def recorded(name, what):
+            fn = self.saved_d[name]
+
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                st = out[0] if isinstance(out, tuple) else out
+                self.events.append((self.stage, self.iteration, what,
+                                    st.num_active))
+                return out
+            return wrapped
+        for name, what in self.DENSIFY.items():
+            setattr(loop.D, name, recorded(name, what))
+
+        def probed_switch(settings, state, cams, iteration=0):
+            out = switch(settings, state, cams, iteration)
+            if out is not None:
+                self.events.append((self.stage, iteration, "stream_switch",
+                                    state.num_active))
+            return out
+
+        def timed_step(cfg, *a, **k):
+            ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if on_card else None)
+            if ev:
+                ev[0].record()
+            out = step(cfg, *a, **k)
+            if ev:
+                ev[1].record()
+            self.steps.append((cfg.stage, len(a[1]), ev, out[1]["loss"]))
+            self.iteration += 1
+            return out
+
+        def timed_build(cams, cfg, *a, **k):
+            cache = gt_cache.get_cache(cfg.runtime.gt_cache_mb, self.dev)
+            misses = cache.misses
+            t0 = time.perf_counter()
+            out = build(cams, cfg, *a, **k)
+            self.builds.append((time.perf_counter() - t0,
+                                cache.misses > misses))
+            return out
+
+        def timed_stage(cfg, scene, state, dcfg, stage, *a, **k):
+            self.stage, self.iteration = stage, 0
+            t0 = time.perf_counter()
+            out = stage_fn(cfg, scene, state, dcfg, stage, *a, **k)
+            if on_card:
+                torch.cuda.synchronize()
+            self.stages.append((stage, a[1], time.perf_counter() - t0))
+            return out
+        loop.train_step_packed, loop.build_batch = timed_step, timed_build
+        loop.scene_reconstruction = timed_stage
+        loop.maybe_stream_switch = probed_switch
+        return self
+
+    def __exit__(self, *exc):
+        (self.loop.train_step_packed, self.loop.build_batch,
+         self.loop.scene_reconstruction,
+         self.loop.maybe_stream_switch) = self.saved
+        for name, fn in self.saved_d.items():
+            setattr(self.loop.D, name, fn)
+
+    def losses(self, stage):
+        return [float(s[3]) for s in self.steps if s[0] == stage]
+
+    def step_ms(self, stage):
+        return [s[2][0].elapsed_time(s[2][1]) for s in self.steps
+                if s[0] == stage and s[2]]
+
+
+def loop_phase(dev, root, step_ms=None, **cfg_kw):
+    """Phase 20: training(cfg) on `dev` with the hypernerf preset at full
+    width, then save_scene, load_trained_model and render_set of 10 frames
+    of the saved model, whose frame 0 the render kernel must composite as
+    composite_stream_plain does on the same rows (within TOL, as phase 5
+    holds the bench's frame). `step_ms` is phase 8's ms per step, printed beside
+    the loop's. Returns (the four training kernels' launches in the loop,
+    the render kernel's launches in render_set)."""
+    from langsplat4d_torch.checkpoint import load_trained_model
+    from langsplat4d_torch.field.deformation import DeformConfig
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render import raster
+    from langsplat4d_torch.render.driver import render_set
+    from langsplat4d_torch.train import loop
+    on_card = dev.type == "cuda"
+    model_path = os.path.join(root, "model")
+    cfg = loop_config(root, model_path, **cfg_kw)
+    names = ("composite_tiles", "composite_tiles_backward",
+             "composite_stream_chunks", "composite_stream_chunks_backward")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for n in names:
+        getattr(C, n).launches = 0
+    t0 = time.perf_counter()
+    with LoopProbe(dev) as probe:
+        state = loop.training(cfg, device=dev)
+    total_s = time.perf_counter() - t0
+    launches = {n: getattr(C, n).launches for n in names}
+    events = probe.events
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else 0.0
+    renders = sum(s[1] for s in probe.steps)
+    for stage, iters, secs in probe.stages:
+        ms = probe.step_ms(stage)
+        print(f"[20] {stage}: {iters} iterations in {secs:.2f} s, "
+              f"{iters / secs:.3f} it/s; CUDA-event step time median "
+              f"{np.median(ms) if ms else float('nan'):.3f} ms "
+              f"(min {min(ms) if ms else float('nan'):.3f}, max "
+              f"{max(ms) if ms else float('nan'):.3f})", flush=True)
+    fl = [s for s in probe.stages if s[0] == "fine-lang"][0]
+    if step_ms:
+        print(f"[20] full loop against step only: fine-lang (batch 1) "
+              f"{fl[1] / fl[2]:.3f} it/s through training(cfg), phase 8's "
+              f"train_step {1e3 / step_ms:.3f} it/s on its workload",
+              flush=True)
+    for stage, it, what, n in events:
+        print(f"[20] {stage} iteration {it}: {what} -> num_active {n}",
+              flush=True)
+    switched = [e for e in events if e[2] == "stream_switch"]
+    print(f"[20] stream switch: "
+          + (f"fired in {switched[0][0]} at iteration {switched[0][1]}"
+             if switched else "did not fire"), flush=True)
+    cold = [b[0] for b in probe.builds if b[1]]
+    warm = [b[0] for b in probe.builds if not b[1]]
+    print(f"[20] build_batch: {len(cold)} calls that missed the GT cache, "
+          f"mean {np.mean(cold) * 1e3 if cold else float('nan'):.2f} ms; "
+          f"{len(warm)} cached, mean "
+          f"{np.mean(warm) * 1e3 if warm else float('nan'):.2f} ms "
+          f"(host clock, on the producer thread)", flush=True)
+    print(f"[20] training(cfg) {total_s:.1f} s for {len(probe.steps)} steps "
+          f"({renders} camera renders); launches: "
+          + ", ".join(f"{n} {v}" for n, v in launches.items())
+          + f"; peak memory {peak:.1f} MiB; final num_active "
+          f"{state.num_active}", flush=True)
+    for stage in loop.STAGE_ORDER:
+        ls = probe.losses(stage)
+        print(f"[20] {stage} loss, mean of each 25 iterations: "
+              + " ".join(f"{np.mean(ls[i:i + 25]):.4f}"
+                         for i in range(0, len(ls), 25)), flush=True)
+    if not all(np.isfinite(probe.losses(s)).all()
+               for s in loop.STAGE_ORDER):
+        raise AssertionError("a loss is not finite")
+    kinds = {(e[0], e[2]) for e in events}
+    for stage in ("coarse-base", "fine-base"):
+        for what in ("densify", "prune", "reset"):
+            if (stage, what) not in kinds:
+                raise AssertionError(f"no {what} in {stage}")
+    if on_card:
+        fwd = launches["composite_tiles"] + launches[
+            "composite_stream_chunks"]
+        bwd = launches["composite_tiles_backward"] + launches[
+            "composite_stream_chunks_backward"]
+        if fwd != renders or bwd != renders:
+            raise AssertionError(f"kernel launches {fwd} / {bwd} for "
+                                 f"{renders} camera renders")
+        if not launches["composite_tiles"]:
+            raise AssertionError("the tile-list kernels never launched")
+    fb = probe.losses("fine-base")
+    head, tail = float(np.mean(fb[:10])), float(np.mean(fb[-10:]))
+    print(f"[20] fine-base loss, first 10 iterations {head:.6f}, last 10 "
+          f"{tail:.6f}: ratio {tail / head:.4f} (floor 0.6)", flush=True)
+    if not tail <= 0.6 * head:
+        raise AssertionError("the fine-base loss did not fall to 0.6x")
+
+    # the saved model: load and render 10 frames through render_set
+    iteration = cfg.optim.fine_lang_iterations
+    loop.save_scene(cfg, state, iteration, "fine-lang", model_path)
+    dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
+                                    max_sh_degree=cfg.model.sh_degree)
+    scene = loop.Scene(root)
+    model, it = load_trained_model(model_path, "fine-lang", -1, dcfg,
+                                   aabb=scene.aabb, device=dev)
+    if it != iteration or model.gaussians.num_active != state.num_active:
+        raise AssertionError("the saved model reads back differently")
+    video = scene.getVideoCameras()
+    views = [video[i] for i in range(min(10, len(video)))]
+    # the render kernel's first call in render_set is frame 0's (its
+    # warm-up): its inputs and output are kept
+    first = []
+    kernel = raster.composite_stream
+
+    def kept(rows, starts, bg, **kw):
+        img = kernel(rows, starts, bg, **kw)
+        if not first:
+            first.append((rows, starts, bg, kw, img))
+        return img
+    C.composite_stream.launches = 0
+    raster.composite_stream = kept
+    try:
+        fps = render_set(cfg, model, dcfg, scene, "video", it, views,
+                         mode="rgb", load_stage="fine-lang", novideo=True)
+    finally:
+        raster.composite_stream = kernel
+    render_launches = C.composite_stream.launches
+    rows, starts, bg, kw, img = first[0]
+    with torch.no_grad():
+        ref = C.composite_stream_plain(rows, starts, bg, **kw)
+    k_err = float((img - ref).abs().max())
+    print(f"[20] saved model frame 0: {int(starts[-1])} (tile, Gaussian) "
+          f"pairs at {kw['tile_size']}-px tiles; composite_stream against "
+          f"composite_stream_plain on render_set's rows: max abs err "
+          f"{k_err:.3g} (bound {TOL})", flush=True)
+    if not k_err <= TOL:
+        raise AssertionError(f"saved model frame 0: render kernel vs plain "
+                             f"{k_err} > {TOL}")
+    del rows, starts, img, ref, first
+    frame = np.load(os.path.join(model_path, "video_rgb", f"ours_{it}",
+                                 "renders_npy", "00000.npy"))
+    gt = views[0].image.transpose(1, 2, 0)
+    psnr = -10 * np.log10(np.mean((np.clip(frame, 0, 1) - gt) ** 2))
+    print(f"[20] saved model: {model.gaussians.num_active} Gaussians, "
+          f"render_set of {len(views)} frames at {fps:.3f} FPS, "
+          f"composite_stream "
+          f"launches {render_launches}; frame 0 PSNR {psnr:.2f} dB against "
+          f"its ground truth", flush=True)
+    if on_card and render_launches < len(views):
+        raise AssertionError("the render kernel did not launch per frame")
+    if not (np.isfinite(frame).all() and frame.shape == gt.shape):
+        raise AssertionError("the saved model renders a bad frame")
+    return launches, render_launches
+
+
+def adam_step_cap(steps):
+    """The most |m_hat| / sqrt(v_hat) reaches in any of Adam's first `steps`
+    steps (Cauchy-Schwarz over the moments' weights; 1 at the first step):
+    two runs' steps differ by at most twice this many learning rates."""
+    from langsplat4d_torch.train.optim import BETA1, BETA2
+    cap = 0.0
+    for t in range(1, steps + 1):
+        k = np.arange(t)[::-1]
+        w = (1 - BETA1) * BETA1 ** k / (1 - BETA1 ** t)
+        u = (1 - BETA2) * BETA2 ** k / (1 - BETA2 ** t)
+        cap = max(cap, float(np.sqrt((w * w / u).sum())))
+    return cap
+
+
+def adam_allowance(grads, lrs, name, like, cap):
+    """What Adam's steps let one leaf's parameters drift when every step's
+    gradient may differ from `grads` (the plain run's, one dict a step) by
+    delta = atol * (the leaf's largest |g|) + rtol * |g|, elementwise: with
+    D the largest delta so far and a = sqrt(v_hat) of `grads`, a step's
+    m_hat / sqrt(v_hat) moves by at most D (1 + c) / (a - D), and by 2c
+    wherever a <= D (c = `cap`); summed over the steps in learning rates
+    (`lrs`, one dict a step)."""
+    from langsplat4d_torch.train.optim import BETA2
+    atol, rtol = GRAD_TOL["atol"], GRAD_TOL["rtol"]
+    v, d_max = torch.zeros_like(like), torch.zeros_like(like)
+    allowed = torch.zeros_like(like)
+    for t, (g_t, lr_t) in enumerate(zip(grads, lrs), 1):
+        g = g_t.get(name)
+        if g is None:
+            g = torch.zeros_like(like)
+        v = BETA2 * v + (1 - BETA2) * g * g
+        a = (v / (1 - BETA2 ** t)).sqrt()
+        d_max = torch.maximum(d_max, atol * g.abs().max() + rtol * g.abs())
+        per_step = torch.where(a > d_max, (1 + cap) * d_max / (a - d_max),
+                               torch.full_like(a, 2 * cap))
+        allowed += lr_t[name] * torch.clamp(per_step, max=2 * cap)
+    return allowed
+
+
+def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
+    """Phase 21: the first `iters` iterations of coarse-base from one
+    initial state with the kernels and with their plain versions. The plain
+    run holds the kernels' run as phase 9 holds a step: every step's
+    gradient of every leaf, and each leaf's Adam moments, within rtol 2e-3
+    / atol 2e-4 of the leaf's largest entry, and its parameters too where
+    the gradient is at least a tenth of the leaf's largest (second moment
+    at least 1e-2 of the largest). Below that the bound's atol is a large
+    share of the gradient, and Adam, whose step is lr * m / sqrt(v)
+    whatever the gradient's size, carries it into the step: there each
+    parameter is held to what gradients within the bound at every step
+    allow through Adam (`adam_allowance`), plus one rounding of the
+    parameter a step. The worst element is printed in learning rates, with
+    its gradient's share of the leaf's largest at the first step and over
+    the run.
+
+    Then two identical runs of `iters` iterations of coarse-base,
+    coarse-lang and fine-base, with the loop's deterministic setting
+    (loop.DETERMINISTIC_STAGES) and, for a stage outside it, with the
+    deterministic algorithms on: the largest difference per leaf. Last,
+    `turn_iters` iterations of coarse-base and of fine-base with the
+    deterministic algorithms on and off, in turns, time what they cost.
+    Returns the largest run-to-run difference of coarse-base."""
+    import copy
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.train import loop
+    from langsplat4d_torch.train import step as step_mod
+    from langsplat4d_torch.utils.timer import Timer
+    cfg = loop_config(root, "", hidden=hidden, quiet=True)
+    scene = loop.Scene(root)
+    state0, dcfg = loop.init_state_from_scene(cfg, scene, seed=cfg.extras.seed,
+                                              device=dev)
+    pairs = (("composite_tiles", "composite_tiles_plain"),
+             ("composite_tiles_backward", "composite_tiles_backward_plain"))
+    update = step_mod.adam_update
+
+    def run(stage="coarse-base", plain=False, n=iters, det=None, log=None):
+        """`n` iterations of `stage` from state0; `det` True or False sets
+        the deterministic algorithms in that stage, None keeps the loop's
+        setting; `log`, a list, receives each step's (gradients of the
+        trainable leaves, learning rates)."""
+        saved = {n_: getattr(C, n_) for n_, _ in pairs}
+        saved_det = loop.DETERMINISTIC_STAGES
+        if plain:
+            for n_, p in pairs:
+                setattr(C, n_, getattr(C, p))
+        if det is not None:
+            loop.DETERMINISTIC_STAGES = (stage,) if det else ()
+        if log is not None:
+            def logged(params, grads, opt, lrs, trainable, **k):
+                log.append(({k_: g.detach().clone()
+                             for k_, g in grads.items()
+                             if trainable[k_] and g is not None}, dict(lrs)))
+                return update(params, grads, opt, lrs, trainable, **k)
+            step_mod.adam_update = logged
+        try:
+            return loop.scene_reconstruction(
+                cfg, scene, copy.deepcopy(state0), dcfg, stage, False, n,
+                Timer())
+        finally:
+            for n_, f in saved.items():
+                setattr(C, n_, f)
+            loop.DETERMINISTIC_STAGES = saved_det
+            step_mod.adam_update = update
+    log_ker, log_ref = [], []
+    ker, ref = run(log=log_ker), run(plain=True, log=log_ref)
+    grads = [g for g, _ in log_ref]
+    lrs = [lr for _, lr in log_ref]
+    worst, fault = 0.0, None
+
+    def hold(tag, got, want):
+        nonlocal worst, fault
+        e, x = scaled_errors(got, want)
+        worst = max(worst, e)
+        if x > 0 and fault is None:
+            fault = (f"{tag}: the kernels' run beyond the gradient bound of "
+                     f"the plain run (scaled error {e:.3g}, excess {x:.3g})")
+    for t, ((g_k, _), g_r) in enumerate(zip(log_ker, grads), 1):
+        if sorted(g_k) != sorted(g_r):
+            raise AssertionError(f"step {t}: the runs train other leaves")
+        for n in g_r:
+            hold(f"{n} gradient at step {t}", g_k[n], g_r[n])
+    cap = adam_step_cap(iters)
+    n_held = n_all = 0
+    loose = (0.0, "no element")     # (share of its bound, where)
+    for n, p in ker.leaves().items():
+        p, want, v = p.detach(), ref.leaves()[n].detach(), ref.opt.v[n]
+        held = (v >= 1e-2 * v.max()) & (v > 0)
+        n_held += int(held.sum())
+        n_all += held.numel()
+        hold(f"{n} m", ker.opt.m[n], ref.opt.m[n])
+        hold(f"{n} v", ker.opt.v[n], v)
+        if bool(held.any()):
+            hold(f"{n} param", p[held], want[held])
+        allowed = (adam_allowance(grads, lrs, n, p, cap)
+                   + len(grads) * 2.0 ** -23 * torch.maximum(p.abs(),
+                                                             want.abs()))
+        diff = (p - want).abs()
+        ratio = torch.where(held | (diff == 0), 0.0, diff / allowed)
+        i = int(ratio.argmax())
+        if float(ratio.flatten()[i]) >= loose[0]:
+            lr_sum = sum(lr[n] for lr in lrs) or 1.0
+            g1 = grads[0].get(n, torch.zeros_like(p)).abs()
+            share1 = g1 / g1.max() if g1.max() > 0 else g1
+            rms = (v / v.max()).sqrt() if v.max() > 0 else v
+            j = int(torch.where(held, 0.0, diff).argmax())
+            loose = (float(ratio.flatten()[i]),
+                     f"{n}: the element nearest its bound moved "
+                     f"{float(diff.flatten()[i]) / lr_sum * iters:.3g} mean "
+                     f"learning rates against "
+                     f"{float(allowed.flatten()[i]) / lr_sum * iters:.3g} "
+                     f"allowed, its gradient "
+                     f"{float(share1.flatten()[i]):.3g} of the leaf's largest "
+                     f"at step 1 and {float(rms.flatten()[i]):.3g} (RMS) over "
+                     f"the run; the leaf's most moved one "
+                     f"{float(diff.flatten()[j]) / lr_sum * iters:.3g}, its "
+                     f"gradient {float(share1.flatten()[j]):.3g} at step 1, "
+                     f"{float(rms.flatten()[j]):.3g} over the run")
+    print(f"[21] {iters} coarse-base iterations, kernels against plain "
+          f"versions: every step's gradients and the Adam moments of every "
+          f"leaf, and the parameters where the gradient is at least a "
+          f"tenth of the leaf's largest ({n_held} of {n_all} elements), "
+          f"within rtol {GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']} of each "
+          f"leaf's largest: worst scaled error {worst:.3g}", flush=True)
+    print(f"[21] the other parameters, held to what that bound on every "
+          f"step's gradient allows through Adam (at most {2 * cap:.4g} "
+          f"learning rates a step): worst {loose[0]:.3g} of its bound, in "
+          f"{loose[1]}", flush=True)
+    if fault:
+        raise AssertionError(fault)
+    if not loose[0] <= 1.0:
+        raise AssertionError(f"a parameter moved beyond what the gradient "
+                             f"bound allows through Adam: {loose[1]}")
+    del log_ker, log_ref, grads
+    del ref
+
+    def max_diff(a, b):
+        diffs = {n: float((p.detach() - b.leaves()[n].detach()).abs().max())
+                 for n, p in a.leaves().items()}
+        top = sorted((d, n) for n, d in diffs.items() if d > 0)[::-1][:5]
+        return max(diffs.values()), ", ".join(f"{n} {d:.3g}" for d, n in top)
+    coarse_diff = None
+    for stage in ("coarse-base", "coarse-lang", "fine-base"):
+        inside = stage in loop.DETERMINISTIC_STAGES
+        for det in ((None,) if inside else (None, True)):
+            first = ker if stage == "coarse-base" else run(stage, det=det)
+            d, per_leaf = max_diff(first, run(stage, det=det))
+            setting = ("on" if (inside if det is None else det) else "off")
+            if det is None:
+                setting += ", the loop's setting"
+            print(f"[21] two identical {stage} runs of {iters} iterations, "
+                  f"deterministic algorithms {setting}: largest difference "
+                  f"{d:.3g}" + (f" (largest: {per_leaf})" if per_leaf else ""),
+                  flush=True)
+            if stage == "coarse-base":
+                coarse_diff = d
+    del ker, first
+
+    # what the deterministic algorithms cost: `turn_iters` iterations with
+    # them on and off, in turns
+    on_card = dev.type == "cuda"
+
+    def timed(stage, det):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(stage, n=turn_iters, det=det)
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    for stage in ("coarse-base", "fine-base"):
+        turns = {True: [], False: []}
+        for det in (False, True, True, False, False, True):
+            turns[det].append(timed(stage, det))
+        print(f"[21] {turn_iters} {stage} iterations in turns, seconds: "
+              f"deterministic algorithms on {spread(turns[True])}, off "
+              f"{spread(turns[False])}", flush=True)
+    return coarse_diff
+
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -1526,6 +2198,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from langsplat4d_torch.checkpoint import TrainedModel
+    from langsplat4d_torch.config import Config
     from langsplat4d_torch.ops import composite
     from langsplat4d_torch.field.deformation import make_grid_spatial_cache
     from langsplat4d_torch.render.driver import render_set
@@ -1564,13 +2238,13 @@ def main():
     gs, dcfg, net, aabb, views = bench_workload(dev)
     out_root = os.path.join(REPO, "langsplat4d_torch", "_build", "smoke")
     shutil.rmtree(out_root, ignore_errors=True)
-    cfg = types.SimpleNamespace(
-        model=types.SimpleNamespace(model_path=out_root,
-                                    white_background=False),
-        runtime=types.SimpleNamespace(render_tile_size=RENDER_TILE_SIZE,
-                                      nonormalized=False))
-    model = types.SimpleNamespace(gaussians=gs, deform=net, aabb=aabb,
-                                  active_sh_degree=3)
+    cfg = Config()
+    cfg.model.model_path = out_root
+    cfg.model.white_background = False
+    cfg.runtime.render_tile_size = RENDER_TILE_SIZE
+    cfg.runtime.nonormalized = False
+    model = TrainedModel(gaussians=gs, deform=net, aabb=aabb,
+                         active_sh_degree=3)
     composite.composite_stream.launches = 0
     t0 = time.perf_counter()
     fps = render_set(cfg, model, dcfg, None, "video", 0, views, mode="lang",
@@ -1763,6 +2437,23 @@ def main():
 
     # 18. the cell-list render option
     entries.append(cell_phases(dev))
+
+    # 19. a HyperNeRF scene on disk, read back through the port's Scene
+    scene_root = os.path.join(REPO, "langsplat4d_torch", "_build", "scene")
+    shutil.rmtree(scene_root, ignore_errors=True)
+    scene_phase(dev, scene_root)
+
+    # 20. training(cfg) from that scene at full width, and the saved model
+    loop_launches, render_launches = loop_phase(dev, scene_root,
+                                                step_ms=list_ms)
+    loop_launches["composite_stream"] = render_launches
+    for e in entries:
+        e["loop_launches"] = loop_launches.get(e["name"], 0)
+
+    # 21. the loop's kernels against their plain versions; determinism
+    determinism_phase(dev, scene_root)
+    shutil.rmtree(scene_root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     # 11, and 15's: the profiles of the two training steps
     for stream, ms_step, phase in ((False, list_ms, 11),

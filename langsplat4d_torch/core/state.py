@@ -94,3 +94,37 @@ def from_arrays(xyz, features_dc, features_rest, scaling, rotation, opacity,
         pad[:n] = np.asarray(dense[k], np.float32)
         out[k] = torch.from_numpy(pad).to(device)
     return GaussianState(**out, num_active=n)
+
+
+def create_from_pcd(points, colors, *, max_sh_degree: int = 3,
+                    lang_dim: int = 3, capacity: Optional[int] = None,
+                    knn_dist2=None, device=None) -> GaussianState:
+    """A padded GaussianState from a coloured point cloud (reference
+    GaussianModel.create_from_pcd, scene/gaussian_model.py:192-219): SH DC
+    from RGB2SH(colors), log-scales log(sqrt(mean 3-NN squared distance))
+    clamped below at 1e-7 (`ops.knn`, the simple-knn distCUDA2 init),
+    identity quaternions and an opacity logit of inverse_sigmoid(0.1).
+    `device=None` is the current CUDA device (an error where there is
+    none)."""
+    from langsplat4d_torch.core.sh import rgb_to_sh
+    from langsplat4d_torch.core.transforms import inverse_sigmoid
+    from langsplat4d_torch.ops.knn import mean_knn_dist2
+
+    device = resolve_device(device)
+    pts = torch.from_numpy(np.asarray(points, np.float32)).to(device)
+    cols = torch.from_numpy(np.asarray(colors, np.float32)).to(device)
+    n = pts.shape[0]
+    if knn_dist2 is None:
+        knn_dist2 = mean_knn_dist2(pts)
+    dist2 = torch.clamp(torch.as_tensor(knn_dist2, dtype=torch.float32,
+                                        device=device), min=1e-7)
+    scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    features_dc = rgb_to_sh(cols)[:, None, :]
+    features_rest = torch.zeros((n, (max_sh_degree + 1) ** 2 - 1, 3),
+                                device=device)
+    rots = torch.cat([torch.ones((n, 1), device=device),
+                      torch.zeros((n, 3), device=device)], dim=1)
+    opacities = inverse_sigmoid(0.1 * torch.ones((n, 1), device=device))
+    return from_arrays(*(t.cpu().numpy() for t in (
+        pts, features_dc, features_rest, scales, rots, opacities)),
+        capacity=capacity, lang_dim=lang_dim, device=device)

@@ -67,6 +67,42 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     return q3 / torch.linalg.norm(q3, dim=-1, keepdim=True)
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[N, 4] (w, x, y, z) quaternions -> [N, 3, 3] rotation matrices,
+    normalizing first (reference build_rotation,
+    utils/general_utils.py:84-105)."""
+    q = q / torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True))
+    r, x, y, z = q.unbind(-1)
+    R = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - r * z), 2 * (x * z + r * y),
+        2 * (x * y + r * z), 1 - 2 * (x * x + z * z), 2 * (y * z - r * x),
+        2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R(q) @ diag(s): [N, 3] x [N, 4] -> [N, 3, 3]."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """[N, 3, 3] symmetric -> [N, 6] (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
+
+
+def covariance_from_scaling_rotation(scaling: torch.Tensor,
+                                     scaling_modifier: float,
+                                     rotation: torch.Tensor) -> torch.Tensor:
+    """[N, 6] upper triangle of the 3D covariance (reference
+    GaussianModel.build_covariance_from_scaling_rotation,
+    scene/gaussian_model.py:32-36)."""
+    L = build_scaling_rotation(scaling_modifier * scaling, rotation)
+    return strip_symmetric(L @ L.transpose(-1, -2))
+
+
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1 - x))
 

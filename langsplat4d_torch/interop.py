@@ -5,7 +5,7 @@ deformation pytree and GaussianState, given as numpy arrays, into the port's
 state dict and GaussianState, and `train_state_from_jax` its whole TrainState
 (parameters, Adam moments and step, densification buffers), so both packages
 can compute from the same values. `load_deformation` reads a
-reference-layout `deformation.pth`.
+reference-layout `deformation.pth`, and `save_deformation` writes one.
 """
 from __future__ import annotations
 
@@ -81,6 +81,23 @@ def load_deformation(path: str, dcfg: DeformConfig,
     net = DeformNetwork(dcfg, generator)
     net.load_state_dict(sd, strict=True)
     return net.to(device)
+
+
+def save_deformation(path: str, net: DeformNetwork, state=None) -> None:
+    """Write `deformation.pth` (the network's state dict, whose keys are the
+    reference's) and, given a TrainState, `deformation_table.pth` and
+    `deformation_accum.pth` over its live rows: the files the reference's
+    save_deformation writes (gaussian_model.py:366-369) and
+    `load_deformation` reads."""
+    torch.save({k: v.detach().cpu().clone()
+                for k, v in net.state_dict().items()},
+               os.path.join(path, "deformation.pth"))
+    if state is not None:
+        n = state.num_active
+        torch.save(state.deformation_table[:n].cpu().clone(),
+                   os.path.join(path, "deformation_table.pth"))
+        torch.save(state.deformation_accum[:n].cpu().clone(),
+                   os.path.join(path, "deformation_accum.pth"))
 
 
 def train_state_from_jax(jstate, dcfg: DeformConfig, device=None):

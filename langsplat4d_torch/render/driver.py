@@ -11,15 +11,14 @@ waits for the port of the scene readers.
 from __future__ import annotations
 
 import os
-import struct
 import time as time_mod
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from langsplat4d_torch.data.png import png_bytes
 from langsplat4d_torch.field.deformation import make_grid_spatial_cache
 from langsplat4d_torch.render.pipeline import render
 from langsplat4d_torch.render.raster import RasterSettings
@@ -41,22 +40,6 @@ def pca_compress(feature_map: np.ndarray) -> np.ndarray:
     out = (u[:, :3] * s[:3] * signs[:3]).reshape(h, w, 3)
     out = (out - out.min()) / (out.max() - out.min())
     return out.transpose(2, 0, 1).astype(np.float32)
-
-
-def png_bytes(img: np.ndarray) -> bytes:
-    """Encode an [H, W] or [H, W, 3] uint8 image as PNG."""
-    h, w = img.shape[:2]
-    color_type = 2 if img.ndim == 3 else 0
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
-                         axis=1).tobytes()
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
-                                         0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def _write_images(images: List[np.ndarray], path: str) -> None:

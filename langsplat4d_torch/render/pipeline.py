@@ -77,8 +77,9 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
            means2d_dummy: Optional[torch.Tensor] = None
            ) -> Dict[str, Optional[torch.Tensor]]:
     """One render. Returns render, language_feature_image (None in base
-    stages), viewspace_points (the `means2d_dummy` gradient tap, if given),
-    visibility_filter, radii, depth and coff."""
+    stages), viewspace_points (the `means2d_dummy` gradient tap; zeros
+    [cap, 2] without one, as in the reference), visibility_filter, radii,
+    depth and coff."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; expected one of {STAGES}")
     (means3d, scales_act, rotations_act, opacity_act, shs, lang,
@@ -92,7 +93,8 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
     return {
         "render": rendered,
         "language_feature_image": None if "base" in stage else lang_img,
-        "viewspace_points": means2d_dummy,
+        "viewspace_points": (means2d_dummy if means2d_dummy is not None
+                             else gs.xyz.new_zeros((gs.capacity, 2))),
         "visibility_filter": radii > 0,
         "radii": radii,
         "depth": depth,

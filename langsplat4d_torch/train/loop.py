@@ -1,20 +1,284 @@
-"""What the training loop decides between steps (port of
-langsplat4d/train/loop.py; so far only the switch to the stream layout).
+"""Training drivers: the per-stage `scene_reconstruction` loop and the
+four-stage curriculum `training` (port of langsplat4d/train/loop.py;
+reference train.py:98-466).
+
+Host control between steps: camera sampling, the batch build (on a producer
+thread, with each camera's ground truth kept on the device after its first
+upload), the loss drain and NaN watchdog every 10 iterations, densification,
+the switch to the stream layout, reports and saving. The step itself is
+`train_step_packed` (train/step.py).
+
+Not ported here: the viewer bridge (`network_gui`), the render-process
+snapshots (they need `utils/scene_vis`), the NaN forensics dump, the debug
+image dump and the discrete K-Means stage with its resume path. Intended
+removals: orbax checkpoints (torch files instead), the JAX package's stream
+tuning and audit (the port's stream has no static size) and the multi-chip
+mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
-from typing import Optional, Sequence
+import os
+import random
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from langsplat4d_torch.config import Config, save_cfg_args
+from langsplat4d_torch.core import plyio
+from langsplat4d_torch.core import state as statelib
+from langsplat4d_torch.core.device import resolve_device
+from langsplat4d_torch.data.gt_cache import get_cache, image_fingerprint
+from langsplat4d_torch.data.prefetch import prefetch
+from langsplat4d_torch.data.scene import BatchLoader, FineSampler, Scene
+from langsplat4d_torch.field.deformation import DeformConfig, DeformNetwork
+from langsplat4d_torch.interop import save_deformation
 from langsplat4d_torch.render.pipeline import binning_report
 from langsplat4d_torch.render.raster import RasterSettings
-from langsplat4d_torch.train.trainstate import TrainState
+from langsplat4d_torch.train import densify as D
+from langsplat4d_torch.train.optim import AdamState, LRConfig
+from langsplat4d_torch.train.step import (StepConfig, eval_step,
+                                          pack_cam_rows, train_step_packed)
+from langsplat4d_torch.train.trainstate import (GAUSSIAN_KEYS, TrainState,
+                                                make_train_state,
+                                                one_up_sh_degree)
+from langsplat4d_torch.utils.telemetry import Telemetry
+from langsplat4d_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
 
+STAGE_ORDER = ("coarse-base", "coarse-lang", "fine-base", "fine-lang")
+
 #: above this share of full tile lists the loop trains on the stream layout
 FULL_LIST_LIMIT = 0.05
+
+
+class PackedPayload(NamedTuple):
+    """One iteration's batch as `train_step_packed` takes it: one packed
+    host row per camera ([B, 39] float32, `pack_cam_rows`) and per-camera
+    ground-truth tensors on the device (uint8 or float32 images [3, H, W];
+    in language stages segment maps [H, W] and feature tables [S, L])."""
+    packed: np.ndarray
+    imgs: Tuple[torch.Tensor, ...]
+    segs: Optional[Tuple[torch.Tensor, ...]]
+    tables: Optional[Tuple[torch.Tensor, ...]]
+
+
+def _watchdog_restart(cfg: Config, reason: str) -> None:
+    """NaN / explosion recovery: re-execute the process with the same argv
+    (reference train.py:341-351), at most LS4D_WATCHDOG_MAX_RESTARTS times
+    (default 3), since a deterministic fault comes back on every restart.
+    With `runtime.watchdog_execv=False`, or past the cap, raise."""
+    if getattr(cfg.runtime, "watchdog_execv", True):
+        n = int(os.environ.get("LS4D_WATCHDOG_RESTART_COUNT", "0"))
+        cap = int(os.environ.get("LS4D_WATCHDOG_MAX_RESTARTS", "3"))
+        if n < cap:
+            os.environ["LS4D_WATCHDOG_RESTART_COUNT"] = str(n + 1)
+            os.execv(sys.executable, [sys.executable] + sys.argv)
+        logger.error("watchdog restart cap reached (%d/%d); raising", n, cap)
+    raise RuntimeError(f"training watchdog tripped: {reason}")
+
+
+def _encode_image(img: np.ndarray) -> np.ndarray:
+    """uint8 where that is lossless (always for images decoded from 8-bit
+    files, the reference's only sources), else float32."""
+    q = np.rint(img * np.float32(255.0)).astype(np.uint8)
+    if np.array_equal(q.astype(np.float32) / np.float32(255.0), img):
+        return q
+    return np.asarray(img, np.float32)
+
+
+def build_batch(cams: Sequence, cfg: Config, scene: Scene, iteration: int,
+                device, split: str = "train",
+                need_lang: bool = True) -> PackedPayload:
+    """The cameras of one iteration as a PackedPayload (the JAX package's
+    packed, compact form: `runtime.compact_batch` and `runtime.packed_step`
+    change nothing that the step sees, so the port always builds this one).
+
+    With `runtime.gt_cache_mb > 0` each camera's ground truth stays on the
+    device after its first upload (data/gt_cache.py): a file-backed image is
+    keyed by the file's identity, so a revisit does not decode it again;
+    any other by a fingerprint of its pixels; the language pair by (feature
+    dir, split, level, camera name). Base stages read no language ground
+    truth (train.py:283-285)."""
+    device = torch.device(device)
+    cache = (get_cache(cfg.runtime.gt_cache_mb, device)
+             if cfg.runtime.gt_cache_mb > 0 else None)
+    packed = pack_cam_rows([c.camera_params_np() for c in cams],
+                           [c.time for c in cams], iteration)
+
+    def image_key(c):
+        if getattr(c, "image_file_backed", False):
+            st = os.stat(c.image_path)
+            return ("img", c.image_name, split, c.image_path,
+                    st.st_mtime_ns, st.st_size, c.image_resize, c.image_filt)
+        return ("img", c.image_name, split, image_fingerprint(c.image))
+
+    def upload(key, make):
+        """The cached tensors under `key`, else those of the host arrays
+        that `make()` builds (only on a miss: a hit decodes nothing)."""
+        hit = cache.peek(key) if cache is not None else None
+        if hit is not None:
+            return hit
+        if cache is None:
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in make())
+        return cache.put(key, make())
+
+    imgs = [upload(image_key(c), lambda c=c: (_encode_image(c.image),))[0]
+            for c in cams]
+    if any(t.dtype == torch.uint8 for t in imgs) and any(
+            t.dtype != torch.uint8 for t in imgs):
+        # mixed encodings in one batch: decode the uint8 ones (exactly)
+        imgs = [t.to(torch.float32) / 255.0 if t.dtype == torch.uint8
+                else t for t in imgs]
+    if not need_lang:
+        return PackedPayload(packed, tuple(imgs), None, None)
+
+    lf_path = cfg.model.lf_path
+    lang_dim = cfg.runtime.language_feature_hiddendim
+    have_lang = lf_path is not None and os.path.isdir(lf_path)
+
+    def lang_host(c):
+        s, t = (c.get_language_feature_compact(
+                    lf_path, cfg.model.feature_level, split,
+                    scene.dataset_type)
+                if have_lang else (None, None))
+        if s is None:
+            # zeros make the language loss a silent no-op: say so once
+            if not getattr(build_batch, "_warned_missing_lang", False):
+                build_batch._warned_missing_lang = True
+                logger.warning("no ground-truth language features under %r "
+                               "(camera %s); language losses see zeros",
+                               lf_path, c.image_name)
+            return (np.full((c.height, c.width), -1, np.int16),
+                    np.zeros((64, lang_dim), np.float32))
+        # the table's rows rounded up to 64, so that few shapes occur
+        s_pad = -(-t.shape[0] // 64) * 64
+        return s, np.pad(t, ((0, s_pad - t.shape[0]), (0, 0)))
+
+    lang_key = ("lang", lf_path, split, cfg.model.feature_level, True)
+    pairs: List = [None] * len(cams)
+    miss = []
+    for i, c in enumerate(cams):
+        hit = (cache.peek(lang_key + (c.image_name,))
+               if cache is not None else None)
+        if hit is not None:
+            pairs[i] = hit
+        else:
+            miss.append(i)
+    if len(miss) > 1:       # the .npy loads of several cameras overlap
+        with ThreadPoolExecutor(max_workers=min(4, len(miss))) as ex:
+            built = list(ex.map(lambda i: lang_host(cams[i]), miss))
+    else:
+        built = [lang_host(cams[i]) for i in miss]
+    for i, arrays in zip(miss, built):
+        if cache is None:
+            pairs[i] = tuple(torch.from_numpy(a).to(device) for a in arrays)
+        else:
+            pairs[i] = cache.put(lang_key + (cams[i].image_name,), arrays)
+    segs = [p[0] for p in pairs]
+    if any(s.dtype != torch.int16 for s in segs):
+        segs = [s.to(torch.int32) for s in segs]   # >32k-segment frames
+    return PackedPayload(packed, tuple(imgs), tuple(segs),
+                         tuple(p[1] for p in pairs))
+
+
+def init_state_from_scene(cfg: Config, scene: Scene, seed: int = 0,
+                          device=None) -> Tuple[TrainState, DeformConfig]:
+    """The initial TrainState from the scene's point cloud
+    (GaussianModel + create_from_pcd): capacity 1.2 x optim.max_points (or
+    the cloud, if larger) rounded up to runtime.capacity_granule, and the
+    deformation network initialised from `seed`. `device=None` is the
+    current CUDA device (an error where there is none)."""
+    device = resolve_device(device)
+    dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
+                                    max_sh_degree=cfg.model.sh_degree)
+    net = DeformNetwork(dcfg, torch.Generator().manual_seed(seed))
+    pcd = scene.point_cloud
+    capacity = statelib.round_capacity(
+        max(int(cfg.optim.max_points * 1.2), len(pcd.points)),
+        cfg.runtime.capacity_granule)
+    gs = statelib.create_from_pcd(
+        pcd.points, pcd.colors, max_sh_degree=cfg.model.sh_degree,
+        lang_dim=cfg.runtime.language_feature_hiddendim, capacity=capacity,
+        device=device)
+    logger.info("Number of points at initialisation: %d (capacity %d)",
+                len(pcd.points), capacity)
+    return make_train_state(gs, net.to(device), scene.aabb), dcfg
+
+
+def save_scene(cfg: Config, state: TrainState, iteration: int, stage: str,
+               model_path: str) -> None:
+    """Scene.save (scene/__init__.py:98-101): the live rows as
+    point_cloud.ply and the deformation files, in
+    point_cloud/{stage}_iteration_{iteration}/."""
+    del cfg
+    out_dir = os.path.join(model_path, "point_cloud",
+                           f"{stage}_iteration_{iteration}")
+    os.makedirs(out_dir, exist_ok=True)
+    n = state.num_active
+    p = {k: state.params[k][:n].detach().cpu().numpy() for k in GAUSSIAN_KEYS}
+    plyio.write_ply(
+        os.path.join(out_dir, "point_cloud.ply"),
+        plyio.gaussians_to_ply_arrays(
+            xyz=p["xyz"], features_dc=p["f_dc"], features_rest=p["f_rest"],
+            language_feature=p["language_feature"], opacity=p["opacity"],
+            scaling=p["scaling"], rotation=p["rotation"]))
+    save_deformation(out_dir, state.deform, state)
+
+
+_BUFFERS = ("max_radii2d", "xyz_gradient_accum", "denom",
+            "deformation_table", "deformation_accum", "aabb")
+
+
+def save_checkpoint(state: TrainState, iteration: int, stage: str,
+                    model_path: str, dcfg: DeformConfig) -> str:
+    """The whole training state (the reference's capture(),
+    gaussian_model.py:71-109) as one torch file,
+    chkpnt_{stage}_{iteration}.pth; returns its path."""
+    def cpu(tree):
+        return {k: v.detach().cpu().clone() for k, v in tree.items()}
+    path = os.path.join(model_path, f"chkpnt_{stage}_{iteration}.pth")
+    torch.save(dict(
+        iteration=iteration, stage=stage, dcfg=dataclasses.asdict(dcfg),
+        params=cpu(state.params), deform=cpu(state.deform.state_dict()),
+        opt_m=cpu(state.opt.m), opt_v=cpu(state.opt.v),
+        opt_step=state.opt.step, num_active=state.num_active,
+        active_sh_degree=state.active_sh_degree,
+        **{k: getattr(state, k).detach().cpu().clone() for k in _BUFFERS}),
+        path)
+    logger.info("[ITER %d] Saved checkpoint %s", iteration, path)
+    return path
+
+
+def load_checkpoint(path: str, device=None) -> Tuple[TrainState, dict]:
+    """A `save_checkpoint` file -> (TrainState on `device`, the payload).
+    `device=None` is the current CUDA device (an error where there is
+    none)."""
+    device = resolve_device(device)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    dcfg = DeformConfig(**payload["dcfg"])
+    net = DeformNetwork(dcfg)
+    net.load_state_dict(payload["deform"], strict=True)
+    net = net.to(device)
+    state = TrainState(
+        params={k: v.to(device) for k, v in payload["params"].items()},
+        deform=net, opt=AdamState({}, {}),
+        num_active=int(payload["num_active"]),
+        active_sh_degree=int(payload["active_sh_degree"]),
+        **{k: payload[k].to(device) for k in _BUFFERS})
+    names = list(state.leaves())
+    state.opt = AdamState(
+        m={k: payload["opt_m"][k].to(device) for k in names},
+        v={k: payload["opt_v"][k].to(device) for k in names},
+        step=int(payload["opt_step"]))
+    return state, payload
 
 
 def maybe_stream_switch(settings: RasterSettings, state: TrainState,
@@ -42,3 +306,352 @@ def maybe_stream_switch(settings: RasterSettings, state: TrainState,
         iteration, 100.0 * stats["tile_full_frac"],
         int(stats["tile_max_count"]), settings.tile_capacity)
     return dataclasses.replace(settings, stream_train=True)
+
+
+# The stages that run under PyTorch's deterministic algorithms on a GPU: the
+# gradient rows reach the Gaussians through `index_add_`, whose CUDA version
+# adds with atomics, and the switch makes two identical runs of these stages
+# bit-equal (chip_smoke.py phase 21). The fine stages also go through
+# `F.grid_sample`'s CUDA backward, which has no deterministic version, so
+# they differ run to run with the switch as without it, and run without it.
+DETERMINISTIC_STAGES = ("coarse-base", "coarse-lang")
+
+
+@contextlib.contextmanager
+def deterministic_on(device: torch.device, stage: str):
+    """PyTorch's deterministic algorithms for the duration, on a GPU and in
+    the DETERMINISTIC_STAGES. warn_only: an operation without a
+    deterministic version warns and runs. Uninitialized memory is not
+    filled (every kernel writes its whole output)."""
+    if device.type != "cuda" or stage not in DETERMINISTIC_STAGES:
+        yield
+        return
+    import torch.utils.deterministic as det
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        det.fill_uninitialized_memory = saved[2]
+
+
+def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
+                         dcfg: DeformConfig, stage: str, joint_train: bool,
+                         train_iter: int, timer: Timer,
+                         rng_seed: int = 0) -> TrainState:
+    """One curriculum stage (reference scene_reconstruction,
+    train.py:98-427), on the state's device."""
+    opt, ex = cfg.optim, cfg.extras
+    device = state.device
+    rng = random.Random(rng_seed)
+    split_gen = torch.Generator(device=device).manual_seed(rng_seed + 7)
+    logger.info("stage:%s begin... train_iter:%d, joint_train:%s", stage,
+                train_iter, joint_train)
+    telemetry = Telemetry(cfg.model.model_path or None,
+                          wandb_name=cfg.extras.expname)
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], device=device)
+    train_cams = scene.getTrainCameras()
+    batch_size = opt.batch_size if "base" in stage else 1
+    first = train_cams[0]
+    settings = RasterSettings(
+        image_height=first.height, image_width=first.width, sh_degree=0,
+        include_feature="base" not in stage, tile_size=cfg.runtime.tile_size,
+        tile_capacity=cfg.runtime.tile_capacity, analytic_vjp=True,
+        stream_train=bool(cfg.runtime.stream_train))
+    step_cfg = StepConfig(
+        settings=settings, dcfg=dcfg,
+        lr_cfg=LRConfig.from_optim(opt, scene.cameras_extent), stage=stage,
+        joint_train=joint_train, no_dlang=bool(cfg.hidden.no_dlang),
+        lam=ex.lam, beta=ex.beta, addcosloss=cfg.runtime.addcosloss,
+        lambda_dssim=opt.lambda_dssim, nonormalized=cfg.runtime.nonormalized,
+        # the reference's plane-regularizer guard (`stage == "fine"`) never
+        # matches its stage names (train.py:331); runtime.plane_reg applies
+        # the presets' weights in fine stages, as the JAX package does
+        time_smoothness_weight=(cfg.hidden.time_smoothness_weight
+                                if (cfg.runtime.plane_reg
+                                    and stage.startswith("fine")) else 0.0),
+        l1_time_planes=cfg.hidden.l1_time_planes,
+        plane_tv_weight=cfg.hidden.plane_tv_weight, batch_size=batch_size)
+    if cfg.model.render_process:
+        logger.warning("render_process snapshots are not ported; skipped")
+    split = "train"
+
+    def batch_source():
+        """Camera sampling and the batch build, run ahead of the step on the
+        producer thread (data/prefetch.py)."""
+        if opt.dataloader:
+            sampler = (FineSampler(train_cams)
+                       if opt.custom_sampler is not None else None)
+            loader = iter(BatchLoader(train_cams, batch_size, sampler=sampler,
+                                      seed=rng_seed))
+        else:
+            loader = None
+            viewpoint_stack = list(range(len(train_cams)))
+            temp_list = list(viewpoint_stack)
+        for it in range(1, train_iter + 1):
+            if loader is not None:
+                try:
+                    cams = next(loader)
+                except StopIteration:
+                    loader = iter(BatchLoader(train_cams, batch_size,
+                                              seed=rng_seed + it))
+                    cams = next(loader)
+            else:
+                cams = []
+                for _ in range(batch_size):
+                    idx = viewpoint_stack.pop(
+                        rng.randrange(len(viewpoint_stack)))
+                    if not viewpoint_stack:
+                        viewpoint_stack.extend(temp_list)
+                    cams.append(train_cams[idx])
+            yield cams, build_batch(cams, cfg, scene, it, device, split,
+                                    need_lang="base" not in stage)
+
+    batch_iter = prefetch(batch_source(), depth=cfg.runtime.prefetch_depth)
+    ema_loss = 0.0
+    # The losses stay on the device and are read in one copy every 10
+    # iterations; the watchdog then fires at most 9 iterations late.
+    pending: List[tuple] = []
+    grow_ctx = {"density_threshold": 5.0, "displacement_scale": 5.0}
+
+    def drain_losses() -> float:
+        nonlocal ema_loss
+        if not pending:
+            return ema_loss
+        vals = torch.stack([d for _, d in pending]).cpu().numpy()
+        for (it, _), v in zip(pending, vals):
+            v = float(v)
+            if not np.isfinite(v):
+                logger.info("loss is nan, end training, reexecv program now.")
+                _watchdog_restart(cfg, f"loss is nan at iteration {it}")
+            if v > 0.5 and it > 100 and "coarse-lang" not in stage:
+                logger.info("loss bigger than 0.5, end training, "
+                            "reexecv program now.")
+                _watchdog_restart(cfg, f"loss {v} > 0.5 at iteration {it}")
+            ema_loss = 0.4 * v + 0.6 * ema_loss
+        pending.clear()
+        return float(vals[-1])
+
+    with deterministic_on(device, stage):
+        for iteration in range(1, train_iter + 1):
+            if iteration % 1000 == 0:
+                one_up_sh_degree(state, cfg.model.sh_degree)
+            cams, batch = next(batch_iter)
+            state, metrics, vs_grad, visibility, radii_max = train_step_packed(
+                step_cfg, state, batch.packed, batch.imgs, batch.segs,
+                batch.tables, bg, state.active_sh_degree)
+            pending.append((iteration, metrics["loss"]))
+
+            if iteration % 10 == 0 or iteration == train_iter:
+                loss = drain_losses()
+                telemetry.scalars(
+                    {f"{stage}/train_loss_patches/l1_loss": loss,
+                     f"{stage}/train_loss_patchestotal_loss": loss,
+                     f"{stage}/total_points": state.num_active}, iteration)
+            if iteration % 100 == 0:
+                logger.info("[%s] iter %d/%d loss %.6f points %d", stage,
+                            iteration, train_iter, ema_loss, state.num_active)
+
+            timer.pause()
+            if iteration in ex.test_iterations:
+                training_report(cfg, scene, state, step_cfg, stage, iteration,
+                                bg, telemetry=telemetry)
+            if iteration in ex.save_iterations and "coarse-base" not in stage:
+                logger.info("[ITER %d] Saving Gaussians", iteration)
+                save_scene(cfg, state, iteration, stage, cfg.model.model_path)
+            timer.start()
+
+            # densification (base stages only, train.py:388-414)
+            if iteration < opt.densify_until_iter and "base" in stage:
+                D.update_max_radii(state, radii_max, visibility)
+                D.add_densification_stats(state, vs_grad, visibility)
+                if "coarse" in stage:
+                    opacity_threshold = opt.opacity_threshold_coarse
+                    densify_threshold = opt.densify_grad_threshold_coarse
+                else:
+                    opacity_threshold = opt.opacity_threshold_fine_init \
+                        - iteration * (opt.opacity_threshold_fine_init
+                                       - opt.opacity_threshold_fine_after) \
+                        / opt.densify_until_iter
+                    densify_threshold = opt.densify_grad_threshold_fine_init \
+                        - iteration * (opt.densify_grad_threshold_fine_init
+                                       - opt.densify_grad_threshold_after) \
+                        / opt.densify_until_iter
+                if (iteration > opt.densify_from_iter
+                        and iteration % opt.densification_interval == 0
+                        and state.num_active < opt.max_points):
+                    state = D.densify(state, densify_threshold,
+                                      scene.cameras_extent, opt.percent_dense,
+                                      split_gen)
+                    if state.num_active >= state.capacity:
+                        logger.warning(
+                            "Gaussian capacity %d saturated; further "
+                            "densification drops new points. Raise "
+                            "runtime.capacity_granule / optim.max_points.",
+                            state.capacity)
+                if (iteration > opt.pruning_from_iter
+                        and iteration % opt.pruning_interval == 0
+                        and state.num_active > opt.min_points_for_prune):
+                    size_threshold = (
+                        20.0 if iteration > opt.opacity_reset_interval
+                        else 0.0)
+                    state = D.prune(state, opacity_threshold,
+                                    scene.cameras_extent, size_threshold)
+                if (opt.add_point
+                        and iteration % opt.densification_interval == 0
+                        and state.num_active < opt.max_points):
+                    # the thresholds halve after a round that adds < 100
+                    # points, as the reference's state does
+                    # (gaussian_model.py:694-697)
+                    state, added = D.grow(state, grow_ctx["density_threshold"],
+                                          grow_ctx["displacement_scale"],
+                                          seed=iteration)
+                    if added < 100:
+                        grow_ctx["density_threshold"] /= 2
+                        grow_ctx["displacement_scale"] /= 2
+                    logger.info("point growing, add point num:%d", added)
+                if iteration % opt.opacity_reset_interval == 0:
+                    logger.info("reset opacity")
+                    state = D.reset_opacity(state)
+                # The switch to the stream layout when the tile lists
+                # truncate, at densify cadence, on the GPU only: the CPU
+                # keeps the lists, as the JAX package keeps them off the TPU.
+                if (cfg.runtime.stream_train_auto
+                        and not step_cfg.settings.stream_train
+                        and device.type == "cuda"
+                        and iteration % opt.densification_interval == 0):
+                    switched = maybe_stream_switch(step_cfg.settings, state,
+                                                   train_cams, iteration)
+                    if switched is not None:
+                        step_cfg = step_cfg._replace(settings=switched)
+
+            if iteration in ex.checkpoint_iterations and "fine" in stage:
+                save_checkpoint(state, iteration, stage, cfg.model.model_path,
+                                dcfg)
+
+    telemetry.close()
+    return state
+
+
+@torch.no_grad()
+def training_report(cfg: Config, scene: Scene, state: TrainState,
+                    step_cfg: StepConfig, stage: str, iteration: int, bg,
+                    telemetry: Optional[Telemetry] = None) -> dict:
+    """Held-out L1 / PSNR at the test iterations (reference training_report,
+    train.py:487-539): a sparse sweep of the test and train cameras, the
+    first 5 views' renders (and the ground truth at the first test
+    iteration), the opacity and motion histograms, total_points,
+    deformation_rate, and the tile lists' truncation. Returns
+    {split: (l1, psnr)}."""
+    from langsplat4d_torch.train.losses import l1_loss, psnr
+
+    first_test_iter = (min(cfg.extras.test_iterations)
+                       if cfg.extras.test_iterations else iteration)
+    result = {}
+    for name, cams in (("test", scene.getTestCameras()),
+                       ("train", scene.getTrainCameras())):
+        if len(cams) == 0:
+            continue
+        idxs = [i % len(cams) for i in range(10, 5000, 299)]
+        l1_total = psnr_total = 0.0
+        for k, i in enumerate(idxs):
+            cam = cams[i]
+            out = eval_step(step_cfg, state, cam.camera_params(state.device),
+                            cam.time, bg, state.active_sh_degree)
+            img = torch.clamp(out["render"], 0.0, 1.0)
+            gt = torch.clamp(torch.from_numpy(cam.image[:3]).to(
+                state.device), 0.0, 1.0)
+            if telemetry is not None and k < 5:
+                telemetry.image(f"{stage}/{name}_view_{cam.image_name}/render",
+                                img.cpu().numpy(), iteration)
+                if iteration == first_test_iter:
+                    telemetry.image(
+                        f"{stage}/{name}_view_{cam.image_name}/ground_truth",
+                        gt.cpu().numpy(), iteration)
+            l1_total += float(l1_loss(img, gt))
+            psnr_total += float(psnr(img, gt))
+        n = len(idxs)
+        result[name] = (l1_total / n, psnr_total / n)
+        logger.info("[ITER %d] Evaluating %s: L1 %s PSNR %s", iteration,
+                    name, l1_total / n, psnr_total / n)
+        if telemetry is not None:
+            telemetry.scalars(
+                {f"{stage}/{name}/loss_viewpoint - l1_loss": l1_total / n,
+                 f"{stage}/{name}/loss_viewpoint - psnr": psnr_total / n},
+                iteration)
+    n_act = state.num_active
+    if telemetry is not None:
+        logit_op = state.params["opacity"][:n_act].cpu().numpy()
+        telemetry.histogram(f"{stage}/scene/opacity_histogram",
+                            1.0 / (1.0 + np.exp(-logit_op)), iteration)
+        telemetry.scalars(
+            {f"{stage}/total_points": n_act,
+             f"{stage}/deformation_rate":
+                 float(state.deformation_table[:n_act].sum()) / max(n_act, 1)},
+            iteration)
+        telemetry.histogram(
+            f"{stage}/scene/motion_histogram",
+            state.deformation_accum[:n_act].mean(-1).cpu().numpy() / 100.0,
+            iteration)
+    # the binning truncation probe: a full list may have dropped Gaussians
+    test_cams = scene.getTestCameras()
+    if len(test_cams) == 0:
+        test_cams = scene.getTrainCameras()
+    if len(test_cams) > 0:
+        stats = binning_report(step_cfg.settings,
+                               test_cams[0].camera_params(state.device),
+                               state.gaussians())
+        result["tile_full_frac"] = stats["tile_full_frac"]
+        msg = (f"[ITER {iteration}] binning: full tile lists "
+               f"{stats['tile_full_frac']:.1%}, longest "
+               f"{int(stats['tile_max_count'])} of "
+               f"{step_cfg.settings.tile_capacity}")
+        if stats["tile_full_frac"] > FULL_LIST_LIMIT:
+            logger.warning(msg + " — capacity saturated; raise "
+                           "tile_capacity or train on the stream layout.")
+        else:
+            logger.info(msg)
+    return result
+
+
+def training(cfg: Config, device=None) -> TrainState:
+    """The curriculum (reference training(), train.py:428-466): the scene
+    from cfg.model.source_path, the initial state, then coarse-base,
+    coarse-lang, fine-base and fine-lang, each for its iteration budget.
+    `device=None` is the current CUDA device (an error where there is
+    none)."""
+    device = resolve_device(device)
+    model_path = cfg.model.model_path
+    if not model_path:
+        model_path = os.path.join(cfg.runtime.exps_dir, cfg.extras.expname)
+        cfg.model.model_path = model_path
+    os.makedirs(model_path, exist_ok=True)
+    save_cfg_args(cfg, model_path)
+    if cfg.extras.resume_from_final_stage == 1:
+        raise NotImplementedError("the discrete fine-lang stage and its "
+                                  "resume are not ported yet")
+    scene = Scene(cfg.model.source_path, images=cfg.model.images,
+                  eval_split=cfg.model.eval, llffhold=cfg.model.llffhold,
+                  white_background=cfg.model.white_background,
+                  extension=cfg.model.extension,
+                  add_random_points=cfg.model.add_points,
+                  model_path=model_path)
+    timer = Timer()
+    timer.start()
+    opt, ex = cfg.optim, cfg.extras
+    state, dcfg = init_state_from_scene(cfg, scene, seed=ex.seed,
+                                        device=device)
+    stages = [("coarse-base", False, opt.coarse_base_iterations),
+              ("coarse-lang", ex.joint_coarse, opt.coarse_lang_iterations),
+              ("fine-base", False, opt.fine_base_iterations),
+              ("fine-lang", ex.joint_fine, opt.fine_lang_iterations)]
+    for stage, joint, iters in stages:
+        if iters > 0:
+            state = scene_reconstruction(cfg, scene, state, dcfg, stage,
+                                         joint, iters, timer)
+    return state

@@ -196,19 +196,42 @@ def pack_cam_rows(cam_params, times, iteration) -> np.ndarray:
     return np.stack(rows)
 
 
+#: (shape, device) -> (pinned host buffer, CUDA event of its last copy)
+_PINNED: Dict[tuple, tuple] = {}
+
+
+def _upload_rows(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The packed rows on `device`. To a GPU they go through a pinned host
+    buffer kept per shape, copied without blocking the host; the buffer is
+    written again only once its last copy has finished."""
+    if device.type != "cuda":
+        return host.to(device)
+    key = (tuple(host.shape), device)
+    if key not in _PINNED:
+        _PINNED[key] = (torch.empty(host.shape, pin_memory=True),
+                        torch.cuda.Event())
+    buf, done = _PINNED[key]
+    done.synchronize()
+    buf.copy_(host)
+    rows = buf.to(device, non_blocking=True)
+    done.record()
+    return rows
+
+
 def train_step_packed(cfg: StepConfig, state: TrainState, packed,
                       imgs: Sequence[torch.Tensor],
                       segs: Optional[Sequence[torch.Tensor]],
                       tables: Optional[Sequence[torch.Tensor]],
                       bg: torch.Tensor, active_sh_degree: int = 0):
     """`train_step` from one packed host row per camera (`pack_cam_rows`:
-    a numpy array or CPU tensor, uploaded once) and per-camera ground-truth
+    a numpy array or CPU tensor, uploaded once, to a GPU without blocking
+    the host) and per-camera ground-truth
     tensors already on the device: images [3, H, W] u8 or f32, and for the
     compact format segment maps [H, W] and feature tables [S, L] (padded
     here to the batch's largest S)."""
     host = torch.as_tensor(np.asarray(packed, np.float32))
     iteration = int(host[0, 38])
-    rows = host.to(state.device)
+    rows = _upload_rows(host, state.device)
     b = rows.shape[0]
     cams = CameraParams(
         viewmatrix=rows[:, :16].reshape(b, 4, 4),

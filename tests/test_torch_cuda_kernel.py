@@ -144,3 +144,20 @@ def test_cell_kernel_launch_is_counted_and_checked(cuda_device):
                         cells_x=2, cell=2)
     with pytest.raises(ValueError, match="cell_starts"):
         composite_cells(rows, starts.long(), bg, cells_x=2, cell=2)
+
+
+def test_packed_rows_upload_through_a_pinned_buffer(cuda_device):
+    """train_step_packed's upload: each call's rows arrive whole through the
+    one pinned buffer of their shape, which is written again only after its
+    last copy has finished."""
+    import numpy as np
+    from langsplat4d_torch.train import step
+    got = []
+    for i in range(4):
+        host = torch.from_numpy(np.random.default_rng(i).normal(
+            size=(2, step.PACKED_CAM_WIDTH)).astype(np.float32))
+        got.append((step._upload_rows(host, cuda_device), host))
+    for rows, host in got:
+        assert rows.device == cuda_device and torch.equal(rows.cpu(), host)
+    buf, _ = step._PINNED[((2, step.PACKED_CAM_WIDTH), cuda_device)]
+    assert buf.is_pinned()

@@ -13,12 +13,20 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SLICE = (
+    "langsplat4d_torch.config",
     "langsplat4d_torch.core.device",
     "langsplat4d_torch.core.plyio",
     "langsplat4d_torch.core.transforms",
     "langsplat4d_torch.core.sh",
     "langsplat4d_torch.core.state",
     "langsplat4d_torch.data.cameras",
+    "langsplat4d_torch.data.png",
+    "langsplat4d_torch.data.readers",
+    "langsplat4d_torch.data.scene",
+    "langsplat4d_torch.data.prefetch",
+    "langsplat4d_torch.data.gt_cache",
+    "langsplat4d_torch.ops.knn",
+    "langsplat4d_torch.ops.point_utils",
     "langsplat4d_torch.ops.grid_sample",
     "langsplat4d_torch.ops.composite",
     "langsplat4d_torch.field.nets",
@@ -33,10 +41,13 @@ SLICE = (
     "langsplat4d_torch.render.pipeline",
     "langsplat4d_torch.render.driver",
     "langsplat4d_torch.utils.synth",
+    "langsplat4d_torch.utils.telemetry",
+    "langsplat4d_torch.utils.timer",
     "langsplat4d_torch.train.losses",
     "langsplat4d_torch.train.optim",
     "langsplat4d_torch.train.trainstate",
     "langsplat4d_torch.train.step",
+    "langsplat4d_torch.train.densify",
     "langsplat4d_torch.train.loop",
 )
 WRAPPERS = ("composite_stream", "composite_tiles", "composite_tiles_backward",
@@ -114,12 +125,25 @@ def _call_without_device(entry, tmp_path):
     if entry == "from_arrays":
         return state.from_arrays(z((2, 3)), z((2, 1, 3)), z((2, 15, 3)),
                                  z((2, 3)), z((2, 4)), z((2, 1)))
+    if entry == "create_from_pcd":
+        return state.create_from_pcd(z((5, 3)), z((5, 3)))
+    if entry == "mean_knn_dist2":
+        from langsplat4d_torch.ops.knn import mean_knn_dist2
+        return mean_knn_dist2(z((5, 3)))
+    if entry == "training":
+        from langsplat4d_torch.config import Config
+        from langsplat4d_torch.train.loop import training
+        return training(Config())
+    if entry == "load_checkpoint":
+        from langsplat4d_torch.train.loop import load_checkpoint
+        return load_checkpoint(str(tmp_path / "none.pth"))
     return synth.realistic_gaussians(10)
 
 
 @pytest.mark.parametrize("entry", [
     "load_trained_model", "gaussians_from_numpy", "load_deformation",
-    "from_arrays", "realistic_gaussians"])
+    "from_arrays", "realistic_gaussians", "create_from_pcd",
+    "mean_knn_dist2", "training", "load_checkpoint"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         entry, tmp_path, monkeypatch):
     """Without a device argument the entry points go to the GPU; where there
