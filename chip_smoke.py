@@ -8,8 +8,8 @@ Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 With --compare it checks nothing and only times the six kernels of this
 checkout in turns with those of other builds (see `compare_builds`).
 Phases, each failing the run on error:
-  1. build the six compositor kernels from csrc/ with nvcc, one nvcc per
-     source, all started together;
+  1. build the six compositor kernels and the plane-gradient kernel from
+     csrc/ with nvcc, one nvcc per source, all started together;
   2. compare the stream kernel with its plain PyTorch version on synthetic
      segments (16- and 32-px tiles, hard cutoffs on and off, empty and long
      segments, image edges that cut through a 16x16 quadrant, and rows that
@@ -25,7 +25,8 @@ Phases, each failing the run on error:
      counted by its plain twin, whose image must be the plain version's;
   6. the ptxas figures (registers, shared memory, spills) of the kernels
      and the blocks an SM holds of each, reckoned from them; a spill in any
-     kernel fails;
+     kernel fails, and so does a stack frame (an array in local memory) in
+     the plane-gradient kernel's functions;
   7. the tile-list kernels against their plain versions on synthetic lists
      (hard cutoffs on and off, counts of 0, 1, full and ragged, row widths
      16, 24 and 32, 35 tiles): forward <= 3e-5, backward within rtol 2e-3 /
@@ -77,8 +78,14 @@ Phases, each failing the run on error:
  19. a HyperNeRF scene on disk, written with the port's own writers: 48
      frames at 960x536 on a quarter orbit, rendered from 200k seeded
      Gaussians, a 100k-point initial cloud, language ground truth of 32
-     segment features; read back through the port's Scene, every decoded
-     image equal to the array written;
+     segments with seeded 512-d "CLIP" features; read back through the
+     port's Scene, every decoded image equal to the array written;
+ 22. (run after 19, before 20) the language autoencoder at full width
+     through `langsplat4d_torch.ae.train` and `.ae.test` (their `main`):
+     encoder 256-128-64-32-3, decoder 16-32-64-128-256-256-512, on the
+     scene's 512-d features, 200 epochs; the export,
+     `language_features_dim3`, is what phase 20 trains on; ms per train
+     batch, the eval loss, the export's rows/s;
  20. training(cfg) on that scene with configs/hypernerf/default.py at full
      width, the depth cuts printed (300/100/300/100 iterations, densify,
      prune and opacity reset firing in both base stages): it/s, wall time
@@ -90,26 +97,51 @@ Phases, each failing the run on error:
      its first 10; then save_scene, load_trained_model and render_set of 10
      frames of the saved model, whose frame 0 the render kernel must
      composite as its plain version does on the same rows;
- 21. the first 5 coarse-base iterations of the loop with the kernels and
+ 21. the plane-gradient kernel (csrc/plane_grad.cu, the HexPlane sample's
+     backward) against its plain version on synthetic planes (points
+     spread, on one row, in one cell, a GaussianState's padding, the
+     loop's time plane with its padding; 4-32 channels) within the
+     gradient bound, two calls bit-equal, and so on the loop's first
+     time-plane call, where it is timed beside aten's backward and beside
+     PyTorch's sorting scatter (`index_put_`) on the rows with a gradient;
+     then the
+     first 5 coarse-base iterations of the loop with the kernels and
      with their plain versions: every step's gradients and the Adam
      moments held to rtol 2e-3 / atol 2e-4 of each leaf's largest entry,
      parameters too where the gradient is at least a tenth of the leaf's
      largest and elsewhere within what that bound allows through Adam's
      steps; two identical runs of 5 iterations of coarse-base,
-     coarse-lang and fine-base with the loop's deterministic setting (and
-     fine-base with the deterministic algorithms on): the largest
-     difference per leaf; 20 iterations of coarse-base and of fine-base
-     with the deterministic algorithms on and off, in turns.
+     coarse-lang and fine-base with the loop's deterministic setting (all
+     four stages): the largest difference per leaf, which must be 0; 20
+     iterations of coarse-base and of fine-base with the deterministic
+     algorithms on and off, in turns, and of fine-base as the loop runs it
+     against its run with aten's grid_sample backward and the
+     deterministic algorithms off, and against its runs with the plane
+     gradient through `index_put_`;
+ 23. evaluation of phase 20's saved model: render_set in lang mode over 8
+     video frames through the render kernel (the first held against the
+     plain version on its rows) with the ground-truth maps; COCO
+     annotations of the 6 largest segments (convex hulls, scipy) and a
+     text cache of their 512-d features; `python -m langsplat4d_torch.eval`
+     (its `main`) with the renders as levels 1-3: Mean IoU, CUDA-event ms
+     a frame of the AE decode, the relevancy, the smoothing and threshold +
+     IoU, the eval's s/frame; the first frame's relevancy maps against the
+     plain CPU computation (1e-5); the video helpers at full width (a
+     seeded 4096-d VAE decoder on a seeded [536, 960, 6] map).
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
-phase 20's loop as `loop_launches`), the card's name and
+phase 20's loop as `loop_launches` and in phase 23's render as
+`eval_launches`), the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
 """
 import argparse
+import contextlib
 import dataclasses
+import functools
 import importlib.util
 import json
+import logging
 import os
 import re
 import shutil
@@ -139,6 +171,10 @@ KERNELS = {
         "langsplat4d/ops/tile_composite.py:787"),
     "composite_cells": ("langsplat4d_torch/csrc/composite_cells.cu",
                         "langsplat4d/ops/tile_composite.py:956"),
+    # not a TPU kernel: the backward of the HexPlane's plane sample, which
+    # the JAX package leaves to jax.grad (XLA's deterministic scatter-add)
+    "plane_grad": ("langsplat4d_torch/csrc/plane_grad.cu",
+                   "langsplat4d/ops/grid_sample.py:13"),
 }
 # One Hopper SM: 32-bit registers (handed out to a warp in units of 256, so
 # a thread's count rounds up to 8), shared memory (1 KiB of it reserved per
@@ -173,6 +209,47 @@ def kernel_resources(log):
         SM_REGISTERS // (-(-regs // 8) * 8 * BLOCK_THREADS),
         SM_SHARED_BYTES // (smem + 1024), SM_THREADS // BLOCK_THREADS,
         SM_BLOCKS)) for pw, (regs, smem, spill) in found.items() if regs}
+
+
+def demangled(symbol):
+    """A kernel's name from its mangled symbol: the last component of
+    its nested name (`_ZN<len><namespace><len><name>...`), with an integer
+    template argument as `<16>`."""
+    if not symbol.startswith("_ZN"):
+        return symbol
+    i, name = 3, symbol
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        n = int(symbol[i:j])
+        name, i = symbol[j:j + n], j + n
+    t = re.match(r"ILi(\d+)E", symbol[i:])
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
+def function_resources(log):
+    """{function: (registers, stack-frame bytes, spilled bytes)} of every
+    entry function in a build log, named as `chunk_sums<16>`."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = demangled(m.group(1))
+            found[name] = [0, 0, 0]
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            found[name][1] = int(m.group(1))
+            found[name][2] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in found.items()}
+
+
 # Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and float32
 # operations/s outside the tensor cores (the compositors are float32 vector
 # code with one expf per pair).
@@ -1415,6 +1492,7 @@ LOOP_CUTS = dict(densify_from_iter=100, densification_interval=100,
                  pruning_from_iter=100, min_points_for_prune=50_000,
                  opacity_reset_interval=200)
 N_FEATURES = 32        # the language ground truth's segment features
+CLIP_DIM = 512         # their width on disk: a CLIP ViT-B/16 feature's
 
 
 def write_scene(root, dev, frames=48, hw=(536, 960), n_true=200_000,
@@ -1425,10 +1503,13 @@ def write_scene(root, dev, frames=48, hw=(536, 960), n_true=200_000,
     bench's), time = frame / (frames - 1), rendered by the port on `dev` at
     `hw` (the rgb/2x size of a HyperNeRF vrig capture at 960x536); the
     initial cloud is a seeded subset of `n_init` true centres with noise and
-    their colours; each true Gaussian carries one of 32 seeded unit
+    their colours; each true Gaussian carries one of 32 seeded unit 3-d
     features, that of the nearest of 32 seeded positions, and `_s.npy`
     holds, at every level, the per-pixel argmax of the rendered language
     image against the 32 features (-1 where the image's norm is under 0.2).
+    `_f.npy` holds the 32 segments' features as the reference lays them
+    out, at CLIP's width: seeded unit 512-d vectors, drawn from a generator
+    of their own so that the pictures are those of the earlier runs.
     Returns {frame id: the uint8 image written}."""
     from concurrent.futures import ThreadPoolExecutor
     from langsplat4d_torch.core.sh import C0
@@ -1443,6 +1524,9 @@ def write_scene(root, dev, frames=48, hw=(536, 960), n_true=200_000,
     from langsplat4d_torch.render.raster import RasterSettings
     from langsplat4d_torch.utils.synth import realistic_gaussians
     rng = np.random.default_rng(seed)
+    clip = np.random.default_rng(seed + 1).normal(size=(N_FEATURES, CLIP_DIM))
+    clip = (clip / np.linalg.norm(clip, axis=1, keepdims=True)).astype(
+        np.float32)
     H, W = hw
     gs = realistic_gaussians(n_true, lang_dim=3, seed=seed, device=dev)
     feats = rng.normal(size=(N_FEATURES, 3)).astype(np.float32)
@@ -1501,7 +1585,7 @@ def write_scene(root, dev, frames=48, hw=(536, 960), n_true=200_000,
         rid = i + 1       # train, test and video cameras all read frame + 1
         np.save(os.path.join(lf_dir, f"{rid:06d}_s.npy"),
                 np.stack([seg.to(torch.int16).cpu().numpy()] * 4))
-        np.save(os.path.join(lf_dir, f"{rid:06d}_f.npy"), feats)
+        np.save(os.path.join(lf_dir, f"{rid:06d}_f.npy"), clip)
         pngs.append((os.path.join(root, "rgb", "2x", f"{iid}.png"),
                      written[iid]))
 
@@ -1566,9 +1650,10 @@ def scene_phase(dev, root, **kw):
 def loop_config(root, model_path, iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS,
                 hidden=None, quiet=False):
     """configs/hypernerf/default.py through the port's config loader, on the
-    scene at `root`, with the depth cuts (each printed on a line of its
-    own). `hidden` overrides deformation fields (a CPU rehearsal narrows
-    the network with it; the card runs the preset's widths)."""
+    scene at `root` and its language features as phase 22 exports them,
+    with the depth cuts (each printed on a line of its own). `hidden`
+    overrides deformation fields (a CPU rehearsal narrows the network with
+    it; the card runs the preset's widths)."""
     from langsplat4d_torch.config import (Config, apply_overrides,
                                           load_py_config)
     cfg = Config()
@@ -1576,7 +1661,7 @@ def loop_config(root, model_path, iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS,
         REPO, "configs", "hypernerf", "default.py")))
     cfg.model.source_path = root
     cfg.model.model_path = model_path
-    cfg.model.language_features_name = "language_features"
+    cfg.model.language_features_name = f"language_features_dim{AE_ENC[-1]}"
     cfg.model.feature_level = 1
     cfg.runtime.watchdog_execv = False      # a trip fails the run
     cfg.extras.test_iterations = []
@@ -1689,6 +1774,72 @@ class LoopProbe:
                 if s[0] == stage and s[2]]
 
 
+class FirstComposite:
+    """Keeps the inputs and output of the render kernel's first call while
+    it is entered (render_set's warm-up renders the first view), to hold it
+    against composite_stream_plain on the same rows afterwards."""
+
+    def __enter__(self):
+        from langsplat4d_torch.render import raster
+        self.raster, self.first = raster, []
+        self.kernel = raster.composite_stream
+
+        def kept(rows, starts, bg, **kw):
+            img = self.kernel(rows, starts, bg, **kw)
+            if not self.first:
+                self.first.append((rows, starts, bg, kw, img))
+            return img
+        raster.composite_stream = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.raster.composite_stream = self.kernel
+
+    def hold(self, phase, what):
+        """max |kernel - plain| on the kept rows, printed; fails past TOL."""
+        from langsplat4d_torch.ops import composite as C
+        rows, starts, bg, kw, img = self.first[0]
+        with torch.no_grad():
+            ref = C.composite_stream_plain(rows, starts, bg, **kw)
+        err = float((img - ref).abs().max())
+        print(f"[{phase}] {what}: {int(starts[-1])} (tile, Gaussian) pairs "
+              f"at {kw['tile_size']}-px tiles; composite_stream against "
+              f"composite_stream_plain on render_set's rows: max abs err "
+              f"{err:.3g} (bound {TOL})", flush=True)
+        if not err <= TOL:
+            raise AssertionError(f"{what}: render kernel vs plain {err} > "
+                                 f"{TOL}")
+        self.first.clear()
+        return err
+
+
+class PlaneProbe:
+    """Keeps, while entered, the inputs of the first backward of the
+    HexPlane's grid_sample_2d on a time plane at its first scales (more
+    rows than columns): the plane, the coordinates and the output
+    gradient."""
+
+    def __enter__(self):
+        from langsplat4d_torch.field import hexplane
+        self.hx, self.fn, self.kept, self.armed = (
+            hexplane, hexplane.grid_sample_2d, [], False)
+
+        def probed(plane, coords):
+            out = self.fn(plane, coords)
+            if (not self.armed and out.requires_grad
+                    and plane.shape[1] > plane.shape[2]):
+                self.armed = True
+                p, c = plane.detach().clone(), coords.detach().clone()
+                out.register_hook(
+                    lambda g: self.kept.append((p, c, g.detach().clone())))
+            return out
+        hexplane.grid_sample_2d = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.hx.grid_sample_2d = self.fn
+
+
 def loop_phase(dev, root, step_ms=None, **cfg_kw):
     """Phase 20: training(cfg) on `dev` with the hypernerf preset at full
     width, then save_scene, load_trained_model and render_set of 10 frames
@@ -1696,11 +1847,12 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
     composite_stream_plain does on the same rows (within TOL, as phase 5
     holds the bench's frame). `step_ms` is phase 8's ms per step, printed beside
     the loop's. Returns (the four training kernels' launches in the loop,
-    the render kernel's launches in render_set)."""
+    the render kernel's launches in render_set, and the inputs of the
+    loop's first plane-gradient call on a time plane, in a list)."""
     from langsplat4d_torch.checkpoint import load_trained_model
     from langsplat4d_torch.field.deformation import DeformConfig
     from langsplat4d_torch.ops import composite as C
-    from langsplat4d_torch.render import raster
+    from langsplat4d_torch.ops import grid_sample as G
     from langsplat4d_torch.render.driver import render_set
     from langsplat4d_torch.train import loop
     on_card = dev.type == "cuda"
@@ -1712,11 +1864,13 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
         torch.cuda.reset_peak_memory_stats()
     for n in names:
         getattr(C, n).launches = 0
+    G.plane_grad.launches = 0
     t0 = time.perf_counter()
-    with LoopProbe(dev) as probe:
+    with LoopProbe(dev) as probe, PlaneProbe() as plane_probe:
         state = loop.training(cfg, device=dev)
     total_s = time.perf_counter() - t0
     launches = {n: getattr(C, n).launches for n in names}
+    launches["plane_grad"] = G.plane_grad.launches
     events = probe.events
     peak = torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else 0.0
     renders = sum(s[1] for s in probe.steps)
@@ -1752,6 +1906,8 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
           + ", ".join(f"{n} {v}" for n, v in launches.items())
           + f"; peak memory {peak:.1f} MiB; final num_active "
           f"{state.num_active}", flush=True)
+    if on_card and not launches["plane_grad"]:
+        raise AssertionError("the plane-gradient kernel never launched")
     for stage in loop.STAGE_ORDER:
         ls = probe.losses(stage)
         print(f"[20] {stage} loss, mean of each 25 iterations: "
@@ -1794,36 +1950,12 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
         raise AssertionError("the saved model reads back differently")
     video = scene.getVideoCameras()
     views = [video[i] for i in range(min(10, len(video)))]
-    # the render kernel's first call in render_set is frame 0's (its
-    # warm-up): its inputs and output are kept
-    first = []
-    kernel = raster.composite_stream
-
-    def kept(rows, starts, bg, **kw):
-        img = kernel(rows, starts, bg, **kw)
-        if not first:
-            first.append((rows, starts, bg, kw, img))
-        return img
     C.composite_stream.launches = 0
-    raster.composite_stream = kept
-    try:
+    with FirstComposite() as first:
         fps = render_set(cfg, model, dcfg, scene, "video", it, views,
                          mode="rgb", load_stage="fine-lang", novideo=True)
-    finally:
-        raster.composite_stream = kernel
     render_launches = C.composite_stream.launches
-    rows, starts, bg, kw, img = first[0]
-    with torch.no_grad():
-        ref = C.composite_stream_plain(rows, starts, bg, **kw)
-    k_err = float((img - ref).abs().max())
-    print(f"[20] saved model frame 0: {int(starts[-1])} (tile, Gaussian) "
-          f"pairs at {kw['tile_size']}-px tiles; composite_stream against "
-          f"composite_stream_plain on render_set's rows: max abs err "
-          f"{k_err:.3g} (bound {TOL})", flush=True)
-    if not k_err <= TOL:
-        raise AssertionError(f"saved model frame 0: render kernel vs plain "
-                             f"{k_err} > {TOL}")
-    del rows, starts, img, ref, first
+    first.hold(20, "saved model frame 0")
     frame = np.load(os.path.join(model_path, "video_rgb", f"ours_{it}",
                                  "renders_npy", "00000.npy"))
     gt = views[0].image.transpose(1, 2, 0)
@@ -1837,7 +1969,526 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
         raise AssertionError("the render kernel did not launch per frame")
     if not (np.isfinite(frame).all() and frame.shape == gt.shape):
         raise AssertionError("the saved model renders a bad frame")
-    return launches, render_launches
+    return launches, render_launches, plane_probe.kept[:1]
+
+
+# the language autoencoder and the evaluation (phases 22 and 23) at the
+# reference's widths; one set of dims for train, test and eval (their CLIs'
+# defaults differ, as the reference's do)
+AE_ENC = (256, 128, 64, 32, 3)
+AE_DEC = (16, 32, 64, 128, 256, 256, 512)
+# the depth cut: the reference trains 100 epochs of a scene's segment
+# features, tens of thousands of rows, ~1e5 batches of 64 in all; phase
+# 19's scene has 48 x 32 rows, 24 batches an epoch, and AE_EPOCHS of them
+# (4,800 batches) fit the phase's ~30 s (300 took 34.5-45.6 s on the card)
+AE_EPOCHS = 200
+EVAL_FRAMES, EVAL_PROMPTS = 8, 6
+# the video search's AE (eval.py's defaults): 4096-d video features
+VIDEO_ENC = (2048, 1024, 512, 256, 128, 64, 32, 6)
+VIDEO_DEC = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def ae_argv(root, dev):
+    argv = ["--dataset_path", root, "--model_name", "smoke",
+            "--encoder_dims", *map(str, AE_ENC),
+            "--decoder_dims", *map(str, AE_DEC),
+            "--feature_dims", str(CLIP_DIM), "--hidden_dims", str(AE_ENC[-1]),
+            "--ckpt_dir", os.path.join(root, "ae_ckpt")]
+    # the CLIs run on the card unless told otherwise
+    return argv if dev.type == "cuda" else argv + ["--device", str(dev)]
+
+
+def ae_phase(dev, root, epochs=AE_EPOCHS):
+    """Phase 22: `python -m langsplat4d_torch.ae.train` (its `main`) on the
+    scene's 512-d segment features at full width for `epochs` epochs, then
+    `ae.test`, which exports `language_features_dim3` (phase 20 trains on
+    it). Prints the CUDA-event ms per train batch (the median gap between
+    consecutive Adam steps), the best eval loss, the export's rows/s (wall
+    clock, files included), and the mean cosine of the decoded export to
+    the features. Returns the checkpoint's path."""
+    from langsplat4d_torch.ae import model as M
+    from langsplat4d_torch.ae import test as ae_test
+    from langsplat4d_torch.ae import train as ae_train
+    from langsplat4d_torch.ae.data import load_feature_dataset
+    on_card = dev.type == "cuda"
+    argv = ae_argv(root, dev)
+    data, _ = load_feature_dataset(os.path.join(root, "language_features"))
+    marks, update = [], ae_train.adam_update
+
+    def marked(*a, **k):
+        update(*a, **k)
+        if on_card:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+    ae_train.adam_update = marked
+    t0 = time.perf_counter()
+    try:
+        best = ae_train.main(argv + ["--num_epochs", str(epochs)])
+    finally:
+        ae_train.adam_update = update
+    if on_card:
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    gaps = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    batches = epochs * -(-len(data) // 64)
+    print(f"[22] ae.train: {len(data)} features of width {data.shape[1]}, "
+          f"encoder {list(AE_ENC)}, decoder {list(AE_DEC)}, {epochs} epochs, "
+          f"{batches} batches (depth cut: the reference's 100 epochs come to "
+          f"~1e5 batches), {train_s:.1f} s; CUDA-event ms per train batch "
+          f"median "
+          f"{np.median(gaps) if gaps else float('nan'):.3f} (min "
+          f"{min(gaps) if gaps else float('nan'):.3f}); best eval loss "
+          f"{best:.6f}", flush=True)
+    if not np.isfinite(best):
+        raise AssertionError("the AE's eval loss is not finite")
+    t0 = time.perf_counter()
+    out_dir = ae_test.main(argv)
+    export_s = time.perf_counter() - t0
+    ckpt = os.path.join(root, "ae_ckpt", "smoke", "best_ckpt.pth")
+    names = sorted(f for f in os.listdir(out_dir) if f.endswith("_f.npy"))
+    codes = np.load(os.path.join(out_dir, names[0]))
+    if (len(names) != len(os.listdir(out_dir)) // 2
+            or codes.shape != (N_FEATURES, AE_ENC[-1])
+            or not np.allclose(np.linalg.norm(codes, axis=1), 1, atol=1e-5)):
+        raise AssertionError(f"a bad export in {out_dir}")
+    model = M.load_ckpt(ckpt, AE_ENC, AE_DEC, device=dev)
+    with torch.no_grad():
+        dec = model.decode(torch.from_numpy(codes).to(dev)).cpu().numpy()
+    cos = float(np.mean(np.sum(dec * data[:N_FEATURES], axis=1)))
+    print(f"[22] ae.test: {len(data)} rows exported to "
+          f"{os.path.basename(out_dir)} in {export_s:.2f} s, "
+          f"{len(data) / export_s:.0f} rows/s; decoded export against the "
+          f"features: mean cosine {cos:.4f}", flush=True)
+    return ckpt
+
+
+class EvalProbe:
+    """CUDA events around the eval CLI's stages while it is entered: the AE
+    decode of a frame's levels, the relevancy, the heatmap smoothing, and
+    activate_stream as a whole (threshold and IoU are what it spends beyond
+    the two); keeps the first relevancy call's inputs and output and every
+    activate_stream result."""
+    STAGES = ("decode", "relevancy", "smoothing", "activate")
+
+    def __init__(self, dev):
+        self.on_card = dev.type == "cuda"
+        self.events = {k: [] for k in self.STAGES}
+        self.first_relevancy, self.results = [], []
+
+    def _wrap(self, mod, name, stage, keep=None):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                  if self.on_card else None)
+            if ev:
+                ev[0].record()
+            out = fn(*a, **k)
+            if ev:
+                ev[1].record()
+                self.events[stage].append(ev)
+            if keep is not None:
+                keep(a, out)
+            return out
+        self.saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    def __enter__(self):
+        from langsplat4d_torch.eval import __main__ as cli
+        from langsplat4d_torch.eval import evaluate as E
+        self.saved = []
+
+        def keep_rel(a, out):
+            if not self.first_relevancy:
+                self.first_relevancy.append((*a, out))
+        self._wrap(cli, "decode_levels", "decode")
+        self._wrap(E, "relevancy_maps", "relevancy", keep_rel)
+        self._wrap(E, "smooth_heatmaps", "smoothing")
+        self._wrap(E, "activate_stream", "activate",
+                   lambda a, out: self.results.append((a[1], out)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def ms(self, stage):
+        return [a.elapsed_time(b) for a, b in self.events[stage]]
+
+
+def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
+               **cfg_kw):
+    """Phase 23: evaluation on phase 20's saved model. render_set in lang
+    mode over `frames` video frames through the render kernel (the first
+    frame's composite held against composite_stream_plain on its rows) with
+    the ground-truth maps; COCO annotations of the `prompts` segments of
+    largest area, each the convex hull of its pixels (scipy; the ground
+    truth is the filled hull); a text cache of their 512-d features and 4
+    seeded negatives; then `python -m langsplat4d_torch.eval` (its `main`)
+    with the renders linked as levels 1-3. Prints Mean IoU, the CUDA-event
+    ms per frame of each stage and the eval's s/frame, holds the first
+    frame's relevancy maps against the plain CPU computation within 1e-5,
+    and runs the video helpers at full width: a seeded VAE decoder
+    (eval.py's video dims) on a seeded [H, W, 6] map through
+    cal_avg_video_feature, then evaluate_video_feature and
+    smooth_similarity. Returns the render kernel's launches."""
+    import json as json_mod
+    from scipy.spatial import ConvexHull
+    from langsplat4d_torch.ae.model import VanillaVAE
+    from langsplat4d_torch.checkpoint import load_trained_model
+    from langsplat4d_torch.eval import __main__ as cli
+    from langsplat4d_torch.eval import evaluate as E
+    from langsplat4d_torch.eval import relevancy as R
+    from langsplat4d_torch.field.deformation import DeformConfig
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render.driver import render_set
+    from langsplat4d_torch.train import loop
+    on_card = dev.type == "cuda"
+    model_path = os.path.join(root, "model")
+    cfg = loop_config(root, model_path, quiet=True, **cfg_kw)
+    dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
+                                    max_sh_degree=cfg.model.sh_degree)
+    scene = loop.Scene(root)
+    model, it = load_trained_model(model_path, "fine-lang", -1, dcfg,
+                                   aabb=scene.aabb, device=dev)
+    video = scene.getVideoCameras()
+    picks = np.linspace(0, len(video) - 1, frames).round().astype(int)
+    views = [video[int(i)] for i in picks]
+    C.composite_stream.launches = 0
+    with FirstComposite() as first:
+        fps = render_set(cfg, model, dcfg, scene, "video", it, views,
+                         mode="lang", load_stage="fine-lang", novideo=True)
+    launches = C.composite_stream.launches
+    first.hold(23, "eval frame 0")
+    if on_card and launches < len(views):
+        raise AssertionError("the render kernel did not launch per frame")
+    del model
+    base = os.path.join(model_path, "video_lang", f"ours_{it}")
+    H, W = views[0].height, views[0].width
+    gts = sorted(os.listdir(os.path.join(base, "gt_npy")))
+    if len(gts) != frames or np.load(os.path.join(
+            base, "gt_npy", gts[0])).shape != (H, W, AE_ENC[-1]):
+        raise AssertionError("render_set wrote no ground-truth maps")
+    print(f"[23] render_set, lang mode: frames {picks.tolist()} at {W}x{H}, "
+          f"{fps:.3f} FPS, composite_stream launches {launches}; "
+          f"ground-truth maps in gt_npy", flush=True)
+
+    # annotations, text cache and the feature layout eval reads
+    lf_dir = os.path.join(root, "language_features")
+    segs = [v.get_language_feature_compact(lf_dir, 1, "video",
+                                           scene.dataset_type)[0]
+            .astype(np.int64) for v in views]
+    areas = np.bincount(np.concatenate([g[g >= 0] for g in segs]),
+                        minlength=N_FEATURES)
+    objs = [int(k) for k in np.argsort(-areas, kind="stable")[:prompts]]
+    names = {k: f"segment{k:02d}" for k in objs}
+    images, anns, hull_masks = [], [], {}
+    for j, seg in enumerate(segs):
+        images.append({"id": j, "file_name": f"{j + 1:05d}_png.rf.{j}.jpg",
+                       "height": H, "width": W})
+        for k in objs:
+            ys, xs = np.nonzero(seg == k)
+            if len(xs) < 16:
+                continue
+            pts = np.stack([xs, ys], 1).astype(np.float64)
+            hull = pts[ConvexHull(pts, qhull_options="QJ").vertices]
+            poly = hull.reshape(-1).tolist()
+            anns.append({"id": len(anns), "image_id": j, "category_id": k + 1,
+                         "bbox": [float(xs.min()), float(ys.min()),
+                                  float(xs.max() - xs.min()),
+                                  float(ys.max() - ys.min())],
+                         "segmentation": [poly]})
+            hull_masks[(j, k)] = E.polygon_to_mask((H, W), hull)
+    work = os.path.join(root, "eval")
+    os.makedirs(os.path.join(work, "annot", "train"))
+    with open(os.path.join(work, "annot", "train",
+                           "_annotations.coco.json"), "w") as f:
+        json_mod.dump({"categories": [{"id": k + 1, "name": names[k]}
+                                      for k in objs],
+                       "images": images, "annotations": anns}, f)
+    clip = np.load(os.path.join(lf_dir, sorted(os.listdir(lf_dir))[0]
+                                .replace("_s.npy", "_f.npy")))
+    negs = np.random.default_rng(23).normal(size=(4, CLIP_DIM))
+    cache = os.path.join(work, "text_cache.npz")
+    np.savez(cache, **{names[k]: clip[k] for k in objs},
+             **dict(zip(R.NEGATIVES, negs.astype(np.float32))))
+    for level in (1, 2, 3):
+        d = os.path.join(work, "exps", f"smoke_{level}", "video_lang")
+        os.makedirs(d)
+        os.symlink(base, os.path.join(d, f"ours_{it}"))
+    argv = ["--exp_name", "smoke", "--iterations", str(it),
+            "--annotation_folder", os.path.join(work, "annot"),
+            "--ae_ckpt_path", ae_ckpt,
+            "--encoder_hidden_dims", *map(str, AE_ENC),
+            "--decoder_hidden_dims", *map(str, AE_DEC),
+            "--feat_dim", str(AE_ENC[-1]), "--dataset_type", "hypernerf",
+            "--feat_root", os.path.join(work, "exps"),
+            "--text_embedding_cache", cache,
+            "--output_path", os.path.join(work, "out")]
+    if not on_card:
+        argv += ["--device", str(dev)]
+    t0 = time.perf_counter()
+    with EvalProbe(dev) as probe:
+        miou = cli.main(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    n = len(probe.results)
+    print(f"[23] eval: {n} frames, {len(objs)} prompts ({len(anns)} "
+          f"annotations), 3 levels; Mean IoU {miou}; {eval_s / n:.3f} s a "
+          f"frame (wall clock, loading included)", flush=True)
+    if not (n == frames and miou is not None and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"eval gave Mean IoU {miou} over {n} frames")
+    if on_card:
+        ms = {k: np.mean(probe.ms(k)) for k in EvalProbe.STAGES}
+        print(f"[23] eval stages, CUDA-event ms a frame: AE decode "
+              f"{ms['decode']:.3f}, relevancy {ms['relevancy']:.3f}, "
+              f"smoothing {ms['smoothing']:.3f}, threshold + IoU "
+              f"{ms['activate'] - ms['relevancy'] - ms['smoothing']:.3f} "
+              f"(activate_stream {ms['activate']:.3f})", flush=True)
+    sem, pos, neg, rel = probe.first_relevancy[0]
+    with torch.no_grad():
+        plain = R.relevancy_maps(sem.cpu(), pos.cpu(), neg.cpu())
+    r_err = float((rel.cpu() - plain).abs().max())
+    print(f"[23] frame 0's relevancy maps {tuple(rel.shape)} against the "
+          f"plain CPU computation: max abs err {r_err:.3g} (bound 1e-5)",
+          flush=True)
+    if not r_err <= 1e-5:
+        raise AssertionError(f"relevancy on the card vs the CPU {r_err}")
+    del sem, pos, neg, rel, plain, probe.first_relevancy
+
+    # the video helpers at full width
+    vae = VanillaVAE(VIDEO_ENC, VIDEO_DEC, latent_dim=VIDEO_ENC[-1],
+                     feature_dim=VIDEO_DEC[-1],
+                     generator=torch.Generator().manual_seed(23)).to(dev)
+    vae.eval()
+    rng = np.random.default_rng(23)
+    vmap = rng.normal(size=(H, W, VIDEO_ENC[-1])).astype(np.float32)
+    q = rng.normal(size=VIDEO_DEC[-1]).astype(np.float32)
+    k0 = objs[0]
+    sims, ev = [], None
+    with torch.no_grad():
+        for j, (prompts_j, out) in enumerate(probe.results):
+            if (j, k0) not in hull_masks:
+                continue
+            mask = torch.from_numpy(hull_masks[(j, k0)]).to(dev)
+            if ev is None and on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            sim = E.cal_avg_video_feature(
+                lambda x: cli.plain_decode(vae, x), mask, vmap, q)
+            if len(sims) == 0 and on_card:
+                ev[1].record()
+            sims.append((j, sim, out[2][names[k0]][0]))
+    res = E.evaluate_video_feature(sims, [(2, 5)],
+                                   float(np.mean([x[1] for x in sims])))
+    smoothed = E.smooth_similarity(sims, 1, [0.1, 0.8, 0.1])
+    first_ms = ev[0].elapsed_time(ev[1]) if ev else float("nan")
+    print(f"[23] video helpers: {names[k0]} over {len(sims)} frames, "
+          f"decoder {list(VIDEO_DEC)} on a [{H}, {W}, {VIDEO_ENC[-1]}] map: "
+          f"first cal_avg_video_feature {first_ms:.3f} ms "
+          f"({int(hull_masks[(sims[0][0], k0)].sum())} pixels); vIoU "
+          f"{res['average_iou']:.4f}, accuracy {res['accuracy']:.4f}; "
+          f"smoothed similarities "
+          + " ".join(f"{x[1]:.4f}" for x in smoothed), flush=True)
+    if not (sims and all(np.isfinite(x[1]) for x in smoothed)
+            and np.isfinite(res["average_iou"])):
+        raise AssertionError("the video helpers gave a bad result")
+    return launches
+
+
+def plane_grad_cases():
+    """(label, channels, plane H x W, points, share of padded rows, layout)
+    of phase 21's check of the plane-gradient kernel: points spread over
+    the plane and past its borders, all on one row (a time plane: one time
+    a camera), all in one cell, and a GaussianState's padding (rows with a
+    zero gradient at one position), at the presets' widths; the last, the
+    shape and padding of phase 20's first time-plane call."""
+    return [("spread", 16, (64, 64), 200_000, 0.0, "spread"),
+            ("time row", 16, (150, 64), 200_000, 0.0, "row"),
+            ("one cell", 8, (32, 32), 50_000, 0.0, "cell"),
+            ("padded", 16, (150, 128), 434_176, 0.78, "row"),
+            ("narrow", 4, (9, 13), 1_000, 0.2, "spread"),
+            ("wide", 32, (64, 64), 30_000, 0.0, "spread"),
+            ("loop time plane", 16, (150, 64), 434_176, 0.84, "row")]
+
+
+def plane_grad_inputs(case, dev, seed=0):
+    """A case's (plane, coords, g) on `dev`, from a seed."""
+    _, c, (h, w), n, padded, layout = case
+    gen = torch.Generator().manual_seed(seed)
+    plane = torch.rand(c, h, w, generator=gen) + 0.1
+    co = torch.rand(n, 2, generator=gen) * 2.4 - 1.2
+    if layout == "row":
+        co[:, 1] = 0.3
+    elif layout == "cell":
+        co = 0.1 + torch.rand(n, 2, generator=gen) * 1e-3
+    g = torch.randn(n, c, generator=gen)
+    k = int(n * padded)
+    if k:                        # the padding: one position, zero gradient
+        co[n - k:] = 0.0
+        g[n - k:] = 0.0
+    return plane.to(dev), co.to(dev), g.to(dev)
+
+
+def plane_grad_rounding(plane, coords, g, grads):
+    """How far each of `grads` (d plane, d coords) lies from the exact
+    gradient, in units of what float32 summation in any order may miss:
+    the largest |got - ref| / (gamma_k * A) over the elements, where ref is
+    plane_grad_plain in float64 from the same float32 corner weights and
+    distances, A the sum of the magnitudes of an element's terms, and
+    gamma_k = k u / (1 - k u) (u = 2^-24) for its k roundings: a cell's
+    gradient has one product and one addition a term (k its terms with a
+    gradient), a point's 4 C terms of two products each and one scaling
+    (k = 4 C + 2). At most 1 for any order of the sums: where the terms
+    cancel, as on a time plane that is all ones (its initial value), the
+    bound holds where one relative to the largest entry cannot."""
+    from langsplat4d_torch.ops import grid_sample as G
+    c, h, w = plane.shape
+    p64, g64 = plane.double(), g.double()
+    ref_p, ref_c = G.plane_grad_plain(p64, coords, g64)
+    cells, _, (e, w_, s, n), (on_x, on_y), _ = corners = G._corners(h, w,
+                                                                      coords)
+    mag_p = G.plane_grad_plain(p64.abs(), coords, g64.abs())[0]
+    live = ((g != 0).any(1)).double()
+    k_p = torch.zeros(h * w, dtype=torch.float64, device=g.device)
+    k_p.index_add_(0, cells.reshape(-1), live.repeat(4))
+    v = p64.abs().reshape(c, h * w).T[cells]                 # [4, n, C]
+    v[1] *= on_x[:, None]
+    v[2] *= on_y[:, None]
+    v[3] *= (on_x & on_y)[:, None]
+    ga = g64.abs()
+    s, n, e, w_ = s[:, None], n[:, None], e[:, None], w_[:, None]
+    mag_c = torch.stack(
+        [(((v[0] + v[1]) * s + (v[2] + v[3]) * n) * ga).sum(1) * ((w - 1) / 2),
+         (((v[0] + v[2]) * e + (v[1] + v[3]) * w_) * ga).sum(1)
+         * ((h - 1) / 2)], 1)
+    u = 2.0 ** -24
+
+    def gamma(k):
+        return k * u / (1 - k * u)
+    bounds = (gamma(k_p).reshape(h, w)[None] * mag_p,
+              gamma(4 * c + 2) * mag_c)
+    ratios = []
+    for got, ref, b in zip(grads, (ref_p, ref_c), bounds):
+        err = (got.double() - ref).abs()
+        ratios.append(float(torch.where(err == 0, 0.0, err / b).max()))
+    return max(ratios)
+
+
+def compare_plane_grad_case(case, dev, seed=0):
+    """The kernel against plane_grad_plain on the case's inputs: the plane
+    and coordinates' gradients, each held to the repo's gradient bound
+    relative to its largest entry (the sums run in another order); both
+    within float32's rounding of the exact gradient (plane_grad_rounding);
+    two calls bit-equal. Returns (max abs err of the plane gradient, of the
+    coordinates', the largest scaled excess, the share of the rounding
+    bound, bit-equal)."""
+    from langsplat4d_torch.ops import grid_sample as G
+    plane, co, g = plane_grad_inputs(case, dev, seed)
+    gp, gc = G.plane_grad(plane, co, g)
+    gp2, gc2 = G.plane_grad(plane, co, g)
+    rp, rc = G.plane_grad_plain(plane, co, g)
+    torch.cuda.synchronize()
+    excess = max(scaled_errors(gp, rp)[1], scaled_errors(gc, rc)[1])
+    same = torch.equal(gp, gp2) and torch.equal(gc, gc2)
+    return (float((gp - rp).abs().max()), float((gc - rc).abs().max()),
+            excess, plane_grad_rounding(plane, co, g, (gp, gc)), same)
+
+
+def plane_grad_index_put(plane, coords, g, filtered=True):
+    """What plane_grad computes, through PyTorch's sorting scatter
+    (`index_put_(accumulate=True)`, deterministic) in place of
+    csrc/plane_grad.cu: the coordinates' gradient as plane_grad_plain forms
+    it; the plane's from the corners of the rows with a gradient only,
+    taken out with `nonzero` (`filtered`: one wait for the host a call), or
+    else with the other rows' corners keyed past the plane, one cell each,
+    into HW + n cells. Phase 21 times it against the kernel."""
+    from langsplat4d_torch.ops import grid_sample as G
+    c, h, w = plane.shape
+    n, hw = coords.shape[0], h * w
+    corners = G._corners(h, w, coords)
+    cells, wts = corners[:2]
+    live = (g != 0).any(1)
+    if filtered:
+        idx = live.nonzero()[:, 0]
+        keys, vals, cap = cells[:, idx], wts[:, idx, None] * g[idx][None], hw
+    else:
+        keys = torch.where(live[None], cells,
+                           hw + torch.arange(n, device=g.device)[None])
+        vals, cap = wts[:, :, None] * g[None], hw + n
+    out = torch.zeros((cap, c), dtype=g.dtype, device=g.device)
+    out.index_put_((keys.reshape(-1),), vals.reshape(-1, c), accumulate=True)
+    return out[:hw].T.reshape(c, h, w), G.coords_grad_plain(plane, g, corners)
+
+
+def plane_grad_entry(inputs, launches):
+    """The kernels line's entry of the plane-gradient kernel on the inputs
+    of one call of phase 20's loop (its first on a time plane, all ones):
+    within float32's rounding of the exact gradient (plane_grad_rounding;
+    the plain version, which adds with atomics, is printed beside it, and
+    its difference from the kernel relative to the largest entry), two
+    calls bit-equal (it raises otherwise); kernel, plain and library times
+    (aten's grid_sampler_2d_backward, which adds with atomics), beside the
+    same function through `index_put_` on the rows with a gradient (both
+    forms of plane_grad_index_put, under the deterministic algorithms, each
+    checked as the kernel is); the bound on the bytes and operations of the
+    call."""
+    from langsplat4d_torch.ops import grid_sample as G
+    from langsplat4d_torch.train.loop import deterministic_on
+    plane, co, g = inputs
+    c, h, w = plane.shape
+    n = co.shape[0]
+    gp, gc = G.plane_grad(plane, co, g)
+    gp2, gc2 = G.plane_grad(plane, co, g)
+    rp, rc = G.plane_grad_plain(plane, co, g)
+    err = max(float((gp - rp).abs().max()), float((gc - rc).abs().max()))
+    scaled = (scaled_errors(gp, rp)[0], scaled_errors(gc, rc)[0])
+    ratio = plane_grad_rounding(plane, co, g, (gp, gc))
+    plain_ratio = plane_grad_rounding(plane, co, g, (rp, rc))
+    same = torch.equal(gp, gp2) and torch.equal(gc, gc2)
+    print(f"[21] plane_grad on the loop's first time-plane call: max abs "
+          f"err vs plain {err:.3g} (relative to the largest entry: plane "
+          f"{scaled[0]:.3g}, coordinates {scaled[1]:.3g}); share of "
+          f"float32's rounding bound on the exact gradient: kernel "
+          f"{ratio:.3g}, plain {plain_ratio:.3g}; two calls bit-equal: "
+          f"{same}", flush=True)
+    if not (ratio <= 1 and same):
+        raise AssertionError("plane_grad on the loop's call: beyond the "
+                             "rounding bound or not reproducible")
+    k_ms = time_ms(lambda: G.plane_grad(plane, co, g), 20)
+    p_ms = time_ms(lambda: G.plane_grad_plain(plane, co, g), 5)
+    go, inp, grid = g.T[None, :, :, None].contiguous(), plane[None], co[
+        None, :, None, :]
+    l_ms = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        go, inp, grid, 0, 1, True, [True, True]), 20)
+    put_ms = {}
+    with deterministic_on(g.device):
+        for filtered in (True, False):
+            fn = functools.partial(plane_grad_index_put, plane, co, g,
+                                   filtered=filtered)
+            (ip, ic), (ip2, ic2) = fn(), fn()
+            x = plane_grad_rounding(plane, co, g, (ip, ic))
+            if not (x <= 1 and torch.equal(ip, ip2) and torch.equal(ic, ic2)):
+                raise AssertionError("plane_grad_index_put: beyond the bound "
+                                     "or not reproducible")
+            put_ms[filtered] = time_ms(fn, 20)
+    live = int((g != 0).any(1).sum())
+    # read coords, g, the plane; write both gradients. Per live point and
+    # corner and channel: the plane term (1 multiply, 1 add) and the
+    # coordinates' (6 multiplies, 2 adds); the padded rows only their
+    # coordinates'
+    b = bound(4 * (n * 2 + n * c + c * h * w + n * 2 + c * h * w),
+              live * 4 * c * 10 + (n - live) * 4 * c * 8)
+    print(f"[21] plane_grad on that call: plane [{c}, {h}, {w}], {n} points "
+          f"({live} with a gradient): kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, aten's backward {l_ms:.3f} ms; index_put_ on the "
+          f"rows with a gradient, taken out by nonzero {put_ms[True]:.3f} "
+          f"ms, keyed past the plane {put_ms[False]:.3f} ms; bound "
+          f"{b[0]:.4f} ms by {b[1]}", flush=True)
+    return dict(name="plane_grad", launches=launches, max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
+                library_ms=l_ms, loop_launches=launches)
 
 
 def adam_step_cap(steps):
@@ -1896,17 +2547,34 @@ def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
     the run.
 
     Then two identical runs of `iters` iterations of coarse-base,
-    coarse-lang and fine-base, with the loop's deterministic setting
-    (loop.DETERMINISTIC_STAGES) and, for a stage outside it, with the
-    deterministic algorithms on: the largest difference per leaf. Last,
-    `turn_iters` iterations of coarse-base and of fine-base with the
-    deterministic algorithms on and off, in turns, time what they cost.
-    Returns the largest run-to-run difference of coarse-base."""
+    coarse-lang and fine-base as the loop runs them (the deterministic
+    algorithms on in every stage): the largest difference per leaf, which
+    on the card must be 0. Last, `turn_iters` iterations of coarse-base and
+    of fine-base with the deterministic algorithms on and off, in turns,
+    time what they cost; and fine-base as the loop runs it against aten's
+    grid_sample backward with the algorithms off (the setting before
+    grid_sample_2d's own backward) and against the plane gradient through
+    `index_put_` (plane_grad_index_put, both forms). Returns the largest
+    run-to-run difference of coarse-base."""
     import copy
     from langsplat4d_torch.ops import composite as C
     from langsplat4d_torch.train import loop
     from langsplat4d_torch.train import step as step_mod
     from langsplat4d_torch.utils.timer import Timer
+    on_card = dev.type == "cuda"
+    if on_card:
+        for case in plane_grad_cases():
+            e_p, e_c, excess, ratio, same = compare_plane_grad_case(case,
+                                                                    dev)
+            print(f"[21] plane_grad {case[0]} (C={case[1]}, plane "
+                  f"{case[2][0]}x{case[2][1]}, {case[3]} points): max abs "
+                  f"err vs plain {e_p:.3g} (plane), {e_c:.3g} "
+                  f"(coordinates), excess over the gradient bound "
+                  f"{excess:.3g}; share of the rounding bound {ratio:.3g}; "
+                  f"two calls bit-equal: {same}", flush=True)
+            if not (excess <= 0 and ratio <= 1 and same):
+                raise AssertionError(f"plane_grad {case[0]}: beyond the "
+                                     f"bound or not reproducible")
     cfg = loop_config(root, "", hidden=hidden, quiet=True)
     scene = loop.Scene(root)
     state0, dcfg = loop.init_state_from_scene(cfg, scene, seed=cfg.extras.seed,
@@ -1915,18 +2583,17 @@ def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
              ("composite_tiles_backward", "composite_tiles_backward_plain"))
     update = step_mod.adam_update
 
-    def run(stage="coarse-base", plain=False, n=iters, det=None, log=None):
-        """`n` iterations of `stage` from state0; `det` True or False sets
-        the deterministic algorithms in that stage, None keeps the loop's
-        setting; `log`, a list, receives each step's (gradients of the
-        trainable leaves, learning rates)."""
+    def run(stage="coarse-base", plain=False, n=iters, det=True, log=None):
+        """`n` iterations of `stage` from state0; `det` False turns the
+        loop's deterministic algorithms off; `log`, a list, receives each
+        step's (gradients of the trainable leaves, learning rates)."""
         saved = {n_: getattr(C, n_) for n_, _ in pairs}
-        saved_det = loop.DETERMINISTIC_STAGES
+        saved_det = loop.deterministic_on
         if plain:
             for n_, p in pairs:
                 setattr(C, n_, getattr(C, p))
-        if det is not None:
-            loop.DETERMINISTIC_STAGES = (stage,) if det else ()
+        if not det:
+            loop.deterministic_on = lambda device: contextlib.nullcontext()
         if log is not None:
             def logged(params, grads, opt, lrs, trainable, **k):
                 log.append(({k_: g.detach().clone()
@@ -1941,7 +2608,7 @@ def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
         finally:
             for n_, f in saved.items():
                 setattr(C, n_, f)
-            loop.DETERMINISTIC_STAGES = saved_det
+            loop.deterministic_on = saved_det
             step_mod.adam_update = update
     log_ker, log_ref = [], []
     ker, ref = run(log=log_ker), run(plain=True, log=log_ref)
@@ -2022,33 +2689,50 @@ def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
         return max(diffs.values()), ", ".join(f"{n} {d:.3g}" for d, n in top)
     coarse_diff = None
     for stage in ("coarse-base", "coarse-lang", "fine-base"):
-        inside = stage in loop.DETERMINISTIC_STAGES
-        for det in ((None,) if inside else (None, True)):
-            first = ker if stage == "coarse-base" else run(stage, det=det)
-            d, per_leaf = max_diff(first, run(stage, det=det))
-            setting = ("on" if (inside if det is None else det) else "off")
-            if det is None:
-                setting += ", the loop's setting"
-            print(f"[21] two identical {stage} runs of {iters} iterations, "
-                  f"deterministic algorithms {setting}: largest difference "
-                  f"{d:.3g}" + (f" (largest: {per_leaf})" if per_leaf else ""),
-                  flush=True)
-            if stage == "coarse-base":
-                coarse_diff = d
+        first = ker if stage == "coarse-base" else run(stage)
+        d, per_leaf = max_diff(first, run(stage))
+        print(f"[21] two identical {stage} runs of {iters} iterations, "
+              f"deterministic algorithms on (the loop's setting): largest "
+              f"difference {d:.3g}"
+              + (f" (largest: {per_leaf})" if per_leaf else ""), flush=True)
+        if stage == "coarse-base":
+            coarse_diff = d
+        if on_card and d != 0:
+            raise AssertionError(f"two identical {stage} runs differ")
     del ker, first
 
     # what the deterministic algorithms cost: `turn_iters` iterations with
-    # them on and off, in turns
-    on_card = dev.type == "cuda"
+    # them on and off, in turns; and fine-base as the loop runs it against
+    # its run before grid_sample_2d had a backward of its own (aten's, whose
+    # CUDA version adds the plane gradient with atomics, and the
+    # deterministic algorithms off), and against the plane gradient through
+    # PyTorch's sorting scatter on the rows with a gradient
+    from langsplat4d_torch.field import hexplane
+    from langsplat4d_torch.ops import grid_sample as G
+    variants = {
+        "kernel": {},
+        "aten": dict(aten=True, det=False),
+        "index_put_ nonzero": dict(backward=functools.partial(
+            plane_grad_index_put, filtered=True)),
+        "index_put_ keyed": dict(backward=functools.partial(
+            plane_grad_index_put, filtered=False))}
 
-    def timed(stage, det):
-        if on_card:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(stage, n=turn_iters, det=det)
-        if on_card:
-            torch.cuda.synchronize()
-        return time.perf_counter() - t0
+    def timed(stage, det=True, aten=False, backward=None):
+        saved = hexplane.grid_sample_2d, G.plane_grad
+        if aten:
+            hexplane.grid_sample_2d = aten_grid_sample_2d
+        if backward is not None:
+            G.plane_grad = backward
+        try:
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(stage, n=turn_iters, det=det)
+            if on_card:
+                torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            hexplane.grid_sample_2d, G.plane_grad = saved
     for stage in ("coarse-base", "fine-base"):
         turns = {True: [], False: []}
         for det in (False, True, True, False, False, True):
@@ -2056,7 +2740,29 @@ def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
         print(f"[21] {turn_iters} {stage} iterations in turns, seconds: "
               f"deterministic algorithms on {spread(turns[True])}, off "
               f"{spread(turns[False])}", flush=True)
+    turns = {k: [] for k in variants}
+    order = list(variants) + list(variants)[::-1]
+    for k in order + order[:len(variants)]:
+        turns[k].append(timed("fine-base", **variants[k]))
+    print(f"[21] {turn_iters} fine-base iterations in turns, seconds: the "
+          f"loop's setting (grid_sample_2d's own backward, deterministic "
+          f"algorithms on) {spread(turns['kernel'])}; before (aten's "
+          f"backward, deterministic algorithms off) {spread(turns['aten'])}; "
+          f"the plane gradient through index_put_ on the rows with a "
+          f"gradient, taken out by nonzero "
+          f"{spread(turns['index_put_ nonzero'])}, keyed past the plane "
+          f"{spread(turns['index_put_ keyed'])}", flush=True)
     return coarse_diff
+
+
+def aten_grid_sample_2d(plane, coords):
+    """grid_sample_2d as it was before its backward of its own: aten's
+    autograd through F.grid_sample (phase 21 times the fine stage with
+    it)."""
+    out = torch.nn.functional.grid_sample(
+        plane[None], coords[None, :, None, :], mode="bilinear",
+        padding_mode="border", align_corners=True)
+    return out[0, :, :, 0].T
 
 
 
@@ -2189,6 +2895,9 @@ def main():
                     metavar="NAME=TREE")
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
+    # warnings only, as before the CLIs of phases 22-23 (which add an INFO
+    # handler to stdout where there is none): the output keeps its phases
+    logging.basicConfig(level=logging.WARNING, format="%(message)s")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2221,8 +2930,9 @@ def main():
         return 0
 
     # 1. build
-    print(f"[1] build+load of {len(composite.KERNELS)} kernels, in "
-          f"parallel: {composite.build_seconds():.2f} s", flush=True)
+    every = tuple(composite.ENTRY_POINTS)
+    print(f"[1] build+load of {len(every)} kernels, in parallel: "
+          f"{composite.build_seconds(every):.2f} s", flush=True)
 
     # 2. kernel vs plain on synthetic segments
     errs = []
@@ -2371,6 +3081,14 @@ def main():
               flush=True)
         if any(r[2] for r in res.values()):
             raise AssertionError(f"{name} spills registers")
+    res = function_resources(composite.ptxas_report("plane_grad"))
+    for fn, (regs, stack, spill) in res.items():
+        print(f"[6] plane_grad: {fn}: {regs} registers, {stack} bytes stack "
+              f"frame, {spill} bytes spilled", flush=True)
+    if len(res) != 7:         # corners, chunk_sums and merge_runs at 8/16/32
+        raise AssertionError(f"plane_grad: ptxas figures of {sorted(res)}")
+    if any(stack or spill for _, stack, spill in res.values()):
+        raise AssertionError("plane_grad: a stack frame or a spill")
 
     # 7. the tile-list kernels vs plain on synthetic lists
     for hard, pw in list_cases():
@@ -2443,15 +3161,31 @@ def main():
     shutil.rmtree(scene_root, ignore_errors=True)
     scene_phase(dev, scene_root)
 
+    # 22. the language autoencoder on its 512-d features: train, export
+    # (phase 20 trains on the export)
+    ae_ckpt = ae_phase(dev, scene_root)
+
     # 20. training(cfg) from that scene at full width, and the saved model
-    loop_launches, render_launches = loop_phase(dev, scene_root,
-                                                step_ms=list_ms)
+    loop_launches, render_launches, plane_inputs = loop_phase(
+        dev, scene_root, step_ms=list_ms)
     loop_launches["composite_stream"] = render_launches
     for e in entries:
         e["loop_launches"] = loop_launches.get(e["name"], 0)
 
-    # 21. the loop's kernels against their plain versions; determinism
+    # 21. the loop's kernels against their plain versions; determinism,
+    # with the plane-gradient kernel held against its plain version
     determinism_phase(dev, scene_root)
+    entries.append(plane_grad_entry(plane_inputs[0],
+                                    loop_launches["plane_grad"]))
+    del plane_inputs
+    torch.cuda.empty_cache()
+
+    # 23. evaluation of the saved model: lang render, AE decode, relevancy,
+    # mIoU; the video helpers
+    eval_launches = eval_phase(dev, scene_root, ae_ckpt)
+    for e in entries:
+        e["eval_launches"] = (eval_launches if e["name"] == "composite_stream"
+                              else 0)
     shutil.rmtree(scene_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -2462,8 +3196,8 @@ def main():
         train_step(cfg, state, batch, bg, 1, 3)                 # warm-up
         profile_steps(cfg, state, batch, bg, ms_step, phase=phase)
     print(json.dumps({"kernels": [
-        dict(e, route="cuda", source=KERNELS[e["name"]][0],
-             replaces=KERNELS[e["name"]][1], library_ms=None)
+        dict({"library_ms": None}, **e, route="cuda",
+             source=KERNELS[e["name"]][0], replaces=KERNELS[e["name"]][1])
         for e in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

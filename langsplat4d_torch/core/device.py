@@ -1,6 +1,8 @@
 """Where the port's entry points put their tensors."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -15,3 +17,19 @@ def resolve_device(device=None) -> torch.device:
                 "the caller passes device='cpu'")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Matrix products in full fp32 for the duration: TF32 off for matmuls
+    and cuDNN (the package turns it off at import; this holds it off against
+    a caller that turned it back on), restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -4,8 +4,9 @@
 deformation pytree and GaussianState, given as numpy arrays, into the port's
 state dict and GaussianState, and `train_state_from_jax` its whole TrainState
 (parameters, Adam moments and step, densification buffers), so both packages
-can compute from the same values. `load_deformation` reads a
-reference-layout `deformation.pth`, and `save_deformation` writes one.
+can compute from the same values; `ae_from_numpy` does the same for the
+language autoencoder. `load_deformation` reads a reference-layout
+`deformation.pth`, and `save_deformation` writes one.
 """
 from __future__ import annotations
 
@@ -143,3 +144,46 @@ def train_state_from_jax(jstate, dcfg: DeformConfig, device=None):
     state.deformation_table = torch.from_numpy(
         np.array(jstate.deformation_table, bool)).to(device)
     return state
+
+
+def ae_from_numpy(params: Dict[str, Any], device=None):
+    """The JAX package's AE or VAE parameter tree, as numpy arrays
+    ({"encoder": [{"linear": {"w", "b"}, "bn"?: {"gamma", "beta", "mean",
+    "var"}}], "decoder": [{"linear": ...}], "fc_mu"?, "fc_var"?}, `w` stored
+    [in, out]) -> the port's Autoencoder or VanillaVAE, widths read from the
+    weights, loaded strictly, in eval mode. `device=None` is the current
+    CUDA device (an error where there is none)."""
+    from langsplat4d_torch.ae.model import Autoencoder, VanillaVAE
+    device = resolve_device(device)
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(key, lin):
+        sd[f"{key}.weight"] = np.asarray(lin["w"]).T
+        sd[f"{key}.bias"] = np.asarray(lin["b"])
+    for i, layer in enumerate(params["encoder"]):
+        linear(f"encoder.{3 * i}", layer["linear"])
+        if "bn" in layer:
+            bn, k = layer["bn"], f"encoder.{3 * i - 2}"
+            sd[f"{k}.weight"] = np.asarray(bn["gamma"])
+            sd[f"{k}.bias"] = np.asarray(bn["beta"])
+            sd[f"{k}.running_mean"] = np.asarray(bn["mean"])
+            sd[f"{k}.running_var"] = np.asarray(bn["var"])
+    for i, layer in enumerate(params["decoder"]):
+        linear(f"decoder.{2 * i}", layer["linear"])
+    enc = [np.asarray(l["linear"]["w"]).shape[1] for l in params["encoder"]]
+    dec = [np.asarray(l["linear"]["w"]).shape[1] for l in params["decoder"]]
+    width = np.asarray(params["encoder"][0]["linear"]["w"]).shape[0]
+    if "fc_mu" in params:
+        linear("fc_mu", params["fc_mu"])
+        linear("fc_var", params["fc_var"])
+        model = VanillaVAE(enc, dec, latent_dim=np.asarray(
+            params["fc_mu"]["w"]).shape[1], feature_dim=width)
+    else:
+        model = Autoencoder(enc, dec, feature_dim=width)
+    state = {k: torch.from_numpy(np.array(v, np.float32))
+             for k, v in sd.items()}
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            state[k] = torch.zeros_like(v)
+    model.load_state_dict(state, strict=True)
+    return model.to(device).eval()

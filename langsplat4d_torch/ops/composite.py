@@ -28,7 +28,9 @@ Each wrapper launches its hand-written CUDA kernel (csrc/*.cu) for CUDA
 tensors and runs the plain PyTorch version beside it (`*_plain`) for CPU
 tensors only. The kernels are compiled with nvcc at first use into `_build/`
 (keyed by a hash of the source, the shared header and the flags), one library
-per source, and bound with ctypes.
+per source, and bound with ctypes: `ENTRY_POINTS` lists every library's C
+entry points with their arguments, the compositors' and the plane
+gradient's (ops/grid_sample.py), and `load_library` binds them all alike.
 
 The tile-list kernels hold their rows row-major, [T, K, PW]: a tile's rows
 are one contiguous run that a block stages with coalesced loads. The TPU
@@ -99,7 +101,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 COMMON_HEADER = CSRC / "composite_common.cuh"
 BUILD_DIR = _PKG / "_build"
-# one library per kernel source; the C entry point is "ls4d_" + name
+# the compositors, one library per kernel source; the C entry point is
+# "ls4d_" + name
 KERNELS = ("composite_stream", "composite_tiles", "composite_tiles_backward",
            "composite_stream_chunks", "composite_stream_chunks_backward",
            "composite_cells")
@@ -110,19 +113,30 @@ KERNELS = ("composite_stream", "composite_tiles", "composite_tiles_backward",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-_C_ARGS = {   # pointers, then ints; the stream pointer is appended
-    "composite_stream": (4, 7),
-    "composite_tiles": (4, 5),
-    "composite_tiles_backward": (5, 5),
-    "composite_stream_chunks": (4, 4),
-    "composite_stream_chunks_backward": (5, 4),
-    "composite_cells": (4, 5),
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# library -> {C entry point without its "ls4d_" prefix: argument types}; the
+# stream pointer is appended to every one
+ENTRY_POINTS = {
+    "composite_stream": {"composite_stream": (_P,) * 4 + (_I,) * 7},
+    "composite_tiles": {"composite_tiles": (_P,) * 4 + (_I,) * 5},
+    "composite_tiles_backward": {
+        "composite_tiles_backward": (_P,) * 5 + (_I,) * 5},
+    "composite_stream_chunks": {
+        "composite_stream_chunks": (_P,) * 4 + (_I,) * 4},
+    "composite_stream_chunks_backward": {
+        "composite_stream_chunks_backward": (_P,) * 5 + (_I,) * 4},
+    "composite_cells": {"composite_cells": (_P,) * 4 + (_I,) * 5},
+    # the backward of the HexPlane's plane sample (ops/grid_sample.py)
+    "plane_grad": {"plane_grad_corners": (_P,) * 6 + (_I,) * 4,
+                   "plane_grad_sums": (_P,) * 6 + (_L,) + (_I,) * 3},
 }
+_LIBRARY_OF = {e: lib for lib, es in ENTRY_POINTS.items() for e in es}
 
 
 def kernel_source(name: str) -> Path:
-    if name not in KERNELS:
-        raise ValueError(f"unknown kernel {name!r}; expected one of {KERNELS}")
+    if name not in ENTRY_POINTS:
+        raise ValueError(f"unknown kernel {name!r}; expected one of "
+                         f"{tuple(ENTRY_POINTS)}")
     return CSRC / f"{name}.cu"
 
 
@@ -182,13 +196,13 @@ def ptxas_report(name: str) -> str:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (first use) and load the library of kernel `name`."""
+    """Build (first use) and load the library of kernel `name`, with its
+    ENTRY_POINTS bound."""
     lib = ctypes.CDLL(str(build_libraries((name,))[name]))
-    n_ptr, n_int = _C_ARGS[name]
-    fn = getattr(lib, "ls4d_" + name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for entry, args in ENTRY_POINTS[name].items():
+        fn = getattr(lib, "ls4d_" + entry)
+        fn.argtypes = list(args) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.ls4d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ls4d_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -203,13 +217,15 @@ def build_seconds(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream; raises if the
-    launch is refused."""
+def _launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point "ls4d_" + `entry` (a key of one library's
+    ENTRY_POINTS) on `device`'s current stream; raises if the launch is
+    refused."""
+    name = _LIBRARY_OF[entry]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         lib = load_library(name)
-        err = getattr(lib, "ls4d_" + name)(*args, stream)
+        err = getattr(lib, "ls4d_" + entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.ls4d_cuda_error_string(err).decode())

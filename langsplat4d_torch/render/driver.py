@@ -5,8 +5,12 @@ render.py:67-161).
 Each frame is one `render` call; the Gaussians are fixed over the
 trajectory, so the HexPlane's spatial-plane products are computed once.
 Frames stay on the device inside the timed loop and are copied out after it,
-as the reference does. Ground-truth language maps are not loaded yet: that
-waits for the port of the scene readers.
+as the reference does. In lang mode each view's ground-truth language map
+is read from the scene's `language_features_name` directory at the
+configured feature level (`HostCamera.get_language_feature`) and saved raw
+into `gt_npy`, where `eval --use_gt_feat 1` reads it; unless ONLY_EVAL is set
+or the scene is not given. A map wider than three channels is shown through
+its top three principal components (`eval/colormaps.pca3`).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from langsplat4d_torch.data.png import png_bytes
+from langsplat4d_torch.eval.colormaps import pca3
 from langsplat4d_torch.field.deformation import make_grid_spatial_cache
 from langsplat4d_torch.render.pipeline import render
 from langsplat4d_torch.render.raster import RasterSettings
@@ -32,12 +37,9 @@ def pca_compress(feature_map: np.ndarray) -> np.ndarray:
     """[C > 3, H, W] -> [3, H, W] visualization: projection on the top three
     principal components, scaled to [0, 1] (reference render.py:52-65)."""
     c, h, w = feature_map.shape
-    flat = feature_map.transpose(1, 2, 0).reshape(-1, c).astype(np.float64)
-    flat = flat - flat.mean(axis=0)
-    u, s, _ = np.linalg.svd(flat, full_matrices=False)
-    # sign convention: the largest |entry| of each component is positive
-    signs = np.sign(u[np.argmax(np.abs(u), axis=0), range(u.shape[1])])
-    out = (u[:, :3] * s[:3] * signs[:3]).reshape(h, w, 3)
+    flat = torch.from_numpy(np.ascontiguousarray(
+        feature_map.transpose(1, 2, 0).reshape(-1, c)))
+    out = pca3(flat).numpy().reshape(h, w, 3)
     out = (out - out.min()) / (out.max() - out.min())
     return out.transpose(2, 0, 1).astype(np.float32)
 
@@ -67,9 +69,10 @@ def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
     """Renders one split of `views` (HostCameras) from `model`
     (checkpoint.TrainedModel) on the model's device; returns the FPS,
     (len(views) - 1) / seconds of the frame loop (reference render.py:95,
-    133-134). `scene` is accepted for the reference's signature; its
-    dataset type only matters to ground-truth loading."""
-    del scene
+    133-134). `scene` gives the dataset type that the ground-truth
+    language maps are read for (lang mode; None reads none)."""
+    lf_path = None if cfg.runtime.only_eval else cfg.model.lf_path
+    data_type = getattr(scene, "dataset_type", None)
     base = os.path.join(cfg.model.model_path, f"{name}_{mode}",
                         f"ours_{iteration}")
     render_path = os.path.join(base, "renders")
@@ -113,16 +116,26 @@ def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
     render_list = [f.cpu().numpy() for f in frames]
     del frames
     gt_list: List[Optional[np.ndarray]] = []
+    gt_raw: List[Optional[np.ndarray]] = []       # saved to gt_npy as read
     tosave: List[np.ndarray] = []
     for idx, view in enumerate(views):
         rendering = render_list[idx]
         gt = None
         if mode == "rgb":
             gt = view.image[:3] if view.image is not None else None
+            gt_raw.append(gt)
         else:
+            if lf_path is not None and data_type is not None:
+                gt, _ = view.get_language_feature(
+                    lf_path, cfg.model.feature_level, split=name,
+                    data_type=data_type)
+            gt_raw.append(gt)
+            if gt is not None and (data_type != "dynerf" or name != "video"):
+                gt = (gt + 1.0) / 2
             rendering = (rendering + 1.0) / 2
             if rendering.shape[0] > 3:
                 rendering = pca_compress(rendering)
+                gt = pca_compress(gt) if gt is not None else None
         gt_list.append(gt)
         tosave.append(rendering)
 
@@ -135,9 +148,9 @@ def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
         for idx, rendering in enumerate(render_list):
             np.save(os.path.join(render_npy_path, f"{idx:05d}.npy"),
                     rendering.transpose(1, 2, 0))
-            if gt_list[idx] is not None:
+            if gt_raw[idx] is not None:
                 np.save(os.path.join(gts_npy_path, f"{idx:05d}.npy"),
-                        gt_list[idx].transpose(1, 2, 0))
+                        gt_raw[idx].transpose(1, 2, 0))
     if not novideo:
         try:
             import imageio

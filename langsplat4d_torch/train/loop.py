@@ -308,22 +308,17 @@ def maybe_stream_switch(settings: RasterSettings, state: TrainState,
     return dataclasses.replace(settings, stream_train=True)
 
 
-# The stages that run under PyTorch's deterministic algorithms on a GPU: the
-# gradient rows reach the Gaussians through `index_add_`, whose CUDA version
-# adds with atomics, and the switch makes two identical runs of these stages
-# bit-equal (chip_smoke.py phase 21). The fine stages also go through
-# `F.grid_sample`'s CUDA backward, which has no deterministic version, so
-# they differ run to run with the switch as without it, and run without it.
-DETERMINISTIC_STAGES = ("coarse-base", "coarse-lang")
-
-
 @contextlib.contextmanager
-def deterministic_on(device: torch.device, stage: str):
-    """PyTorch's deterministic algorithms for the duration, on a GPU and in
-    the DETERMINISTIC_STAGES. warn_only: an operation without a
+def deterministic_on(device: torch.device):
+    """PyTorch's deterministic algorithms for the duration, on a GPU, in
+    every stage: the gradient rows reach the Gaussians through `index_add_`,
+    whose CUDA version adds with atomics unless the switch is on, and the
+    HexPlane's plane gradient (`ops/grid_sample.py`) sums each cell in a
+    fixed order, so two identical runs of any stage are bit-equal
+    (chip_smoke.py phase 21). warn_only: an operation without a
     deterministic version warns and runs. Uninitialized memory is not
     filled (every kernel writes its whole output)."""
-    if device.type != "cuda" or stage not in DETERMINISTIC_STAGES:
+    if device.type != "cuda":
         yield
         return
     import torch.utils.deterministic as det
@@ -437,7 +432,7 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
         pending.clear()
         return float(vals[-1])
 
-    with deterministic_on(device, stage):
+    with deterministic_on(device):
         for iteration in range(1, train_iter + 1):
             if iteration % 1000 == 0:
                 one_up_sh_degree(state, cfg.model.sh_degree)

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from chip_smoke import (cell_cases, compare_case, compare_cell_case,
-                        compare_list_case, compare_segment_case,
-                        kernel_cases, list_cases, segment_cases)
+                        compare_list_case, compare_plane_grad_case,
+                        compare_segment_case, kernel_cases, list_cases,
+                        plane_grad_cases, segment_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +162,14 @@ def test_packed_rows_upload_through_a_pinned_buffer(cuda_device):
         assert rows.device == cuda_device and torch.equal(rows.cpu(), host)
     buf, _ = step._PINNED[((2, step.PACKED_CAM_WIDTH), cuda_device)]
     assert buf.is_pinned()
+
+
+@pytest.mark.parametrize("case", plane_grad_cases(), ids=lambda c: c[0])
+def test_plane_grad_kernel_matches_plain_and_repeats(cuda_device, case):
+    """The plane sample's backward (csrc/plane_grad.cu) against
+    plane_grad_plain within the gradient bound of each gradient's largest
+    entry, within float32's rounding of the exact gradient, and two calls
+    bit-equal (chip_smoke.py phase 21's cases)."""
+    _, _, excess, ratio, same = compare_plane_grad_case(case, cuda_device,
+                                                        seed=1)
+    assert excess <= 0.0 and ratio <= 1.0 and same

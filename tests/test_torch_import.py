@@ -49,7 +49,19 @@ SLICE = (
     "langsplat4d_torch.train.step",
     "langsplat4d_torch.train.densify",
     "langsplat4d_torch.train.loop",
+    "langsplat4d_torch.ae",
+    "langsplat4d_torch.ae.model",
+    "langsplat4d_torch.ae.data",
+    "langsplat4d_torch.ae.train",
+    "langsplat4d_torch.ae.test",
+    "langsplat4d_torch.eval",
+    "langsplat4d_torch.eval.relevancy",
+    "langsplat4d_torch.eval.colormaps",
+    "langsplat4d_torch.eval.evaluate",
+    "langsplat4d_torch.eval.__main__",
 )
+# libraries a GPU host may lack: the port imports none of them
+HOST_LACKS = ("cv2", "PIL", "matplotlib", "sklearn")
 WRAPPERS = ("composite_stream", "composite_tiles", "composite_tiles_backward",
             "composite_stream_chunks", "composite_stream_chunks_backward",
             "composite_cells")
@@ -82,6 +94,32 @@ def test_port_never_imports_jax():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "langsplat4d"))
+        assert not bad, bad
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_port_imports_no_cv2_pil_matplotlib_or_sklearn():
+    """In a clean interpreter whose import system refuses jax, flax, the
+    JAX package, cv2, PIL, matplotlib and sklearn: every module of the port
+    imports, the AE and the eval CLI among them (the two plot helpers import
+    matplotlib only when called)."""
+    refused = ("jax", "jaxlib", "flax", "langsplat4d") + HOST_LACKS
+    code = textwrap.dedent(f"""
+        import sys
+
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in {refused!r}:
+                    raise ImportError("refused: " + name)
+
+        sys.meta_path.insert(0, Refuse())
+    """) + "".join(f"import {m}\n" for m in SLICE) + textwrap.dedent(f"""
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in {refused!r})
         assert not bad, bad
         print("ok")
     """)
@@ -137,13 +175,33 @@ def _call_without_device(entry, tmp_path):
     if entry == "load_checkpoint":
         from langsplat4d_torch.train.loop import load_checkpoint
         return load_checkpoint(str(tmp_path / "none.pth"))
+    if entry == "ae_load_ckpt":
+        from langsplat4d_torch.ae.model import load_ckpt
+        return load_ckpt(os.path.join(REPO, "tests", "fixtures",
+                                      "golden_quality", "ae_best_ckpt.pth"),
+                         [8, 3], [8, 16])
+    if entry == "ae_from_numpy":
+        return interop.ae_from_numpy({})
+    if entry == "ae_train":
+        from langsplat4d_torch.ae.train import main
+        return main(["--dataset_path", str(tmp_path), "--model_name", "m"])
+    if entry == "ae_test":
+        from langsplat4d_torch.ae.test import main
+        return main(["--dataset_path", str(tmp_path), "--model_name", "m"])
+    if entry == "eval":
+        from langsplat4d_torch.eval.__main__ import main
+        return main(["--exp_name", "e", "--iterations", "1",
+                     "--annotation_folder", str(tmp_path),
+                     "--ae_ckpt_path", str(tmp_path / "none.pth"),
+                     "--output_path", str(tmp_path / "out")])
     return synth.realistic_gaussians(10)
 
 
 @pytest.mark.parametrize("entry", [
     "load_trained_model", "gaussians_from_numpy", "load_deformation",
     "from_arrays", "realistic_gaussians", "create_from_pcd",
-    "mean_knn_dist2", "training", "load_checkpoint"])
+    "mean_knn_dist2", "training", "load_checkpoint", "ae_load_ckpt",
+    "ae_from_numpy", "ae_train", "ae_test", "eval"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         entry, tmp_path, monkeypatch):
     """Without a device argument the entry points go to the GPU; where there
@@ -223,7 +281,9 @@ def test_kernel_sources_are_plain_cuda():
     assert "arch=compute_90a,code=sm_90a" in composite.NVCC_FLAGS
     assert "--fmad=false" in composite.NVCC_FLAGS
     assert composite.KERNELS == WRAPPERS
-    assert set(composite._C_ARGS) == set(WRAPPERS)
+    assert tuple(composite.ENTRY_POINTS)[:len(WRAPPERS)] == WRAPPERS
+    for name in WRAPPERS:
+        assert list(composite.ENTRY_POINTS[name]) == [name]
     for name in composite.KERNELS:
         src = composite.kernel_source(name).read_text()
         assert re.findall(r"#include\s+(\S+)", src) == [
