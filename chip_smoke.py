@@ -112,12 +112,15 @@ Phases, each failing the run on error:
      largest and elsewhere within what that bound allows through Adam's
      steps; two identical runs of 5 iterations of coarse-base,
      coarse-lang and fine-base with the loop's deterministic setting (all
-     four stages): the largest difference per leaf, which must be 0; 20
+     four stages): the largest difference per leaf, which must be 0; 10
      iterations of coarse-base and of fine-base with the deterministic
      algorithms on and off, in turns, and of fine-base as the loop runs it
      against its run with aten's grid_sample backward and the
      deterministic algorithms off, and against its runs with the plane
-     gradient through `index_put_`;
+     gradient through `index_put_`; the DenseGrid's backward (`empty_voxel`:
+     the same segmented sums over eight corners) against its plain
+     version, two calls bit-equal, and two identical fine-base runs with
+     `empty_voxel` on, bit-equal;
  23. evaluation of phase 20's saved model: render_set in lang mode over 8
      video frames through the render kernel (the first held against the
      plain version on its rows) with the ground-truth maps; COCO
@@ -127,11 +130,24 @@ Phases, each failing the run on error:
      a frame of the AE decode, the relevancy, the smoothing and threshold +
      IoU, the eval's s/frame; the first frame's relevancy maps against the
      plain CPU computation (1e-5); the video helpers at full width (a
-     seeded 4096-d VAE decoder on a seeded [536, 960, 6] map).
+     seeded 4096-d VAE decoder on a seeded [536, 960, 6] map);
+ 24. scripts/train_eval.sh's flow through the port's CLIs on that scene:
+     `python -m langsplat4d_torch.train` (phase A: the preset at full
+     width, phase 20's depth cuts, fine-lang 0, a checkpoint at fine-base's
+     last iteration, the render-process snapshots, the debug grid and the
+     viewer bridge answering one request; phase B: the discrete
+     fine-lang-discrete stage resumed from that checkpoint, cut to 200
+     iterations), `.render` in lang mode at fine-lang-discrete over the
+     video split (frame 0 held against the plain version on its rows),
+     `.eval` on those renders; then prepare_discrete_stage in both modes on
+     phase 20's saved state, its K-Means held against the plain version;
+     last, phase A three more times, without, without and with the
+     snapshots, for its it/s with and without them in turns.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
-phase 20's loop as `loop_launches` and in phase 23's render as
-`eval_launches`), the card's name and
+phase 20's loop as `loop_launches`, in phase 23's render as
+`eval_launches` and in phase 24's CLIs as `cli_launches`), the card's
+name and
 power limit, and as the last line {"ok": true, "device": {...}}. Imports
 nothing of JAX or of the JAX package.
 """
@@ -175,6 +191,11 @@ KERNELS = {
     # the JAX package leaves to jax.grad (XLA's deterministic scatter-add)
     "plane_grad": ("langsplat4d_torch/csrc/plane_grad.cu",
                    "langsplat4d/ops/grid_sample.py:13"),
+    # the same library's segmented sums over the DenseGrid's eight corners:
+    # the backward of dense_grid_query, which the JAX package leaves to
+    # jax.grad
+    "dense_grid_grad": ("langsplat4d_torch/csrc/plane_grad.cu",
+                        "langsplat4d/field/hexplane.py:73"),
 }
 # One Hopper SM: 32-bit registers (handed out to a warp in units of 256, so
 # a thread's count rounds up to 8), shared memory (1 KiB of it reserved per
@@ -1664,6 +1685,9 @@ def loop_config(root, model_path, iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS,
     cfg.model.language_features_name = f"language_features_dim{AE_ENC[-1]}"
     cfg.model.feature_level = 1
     cfg.runtime.watchdog_execv = False      # a trip fails the run
+    # the preset's render-process snapshots are phase 24's, through the
+    # train CLI, which prints their cost beside these phases' it/s
+    cfg.model.render_process = False
     cfg.extras.test_iterations = []
     cfg.extras.save_iterations = []
     cfg.extras.checkpoint_iterations = []
@@ -1695,15 +1719,16 @@ class LoopProbe:
         from langsplat4d_torch.train import loop
         self.loop, self.dev = loop, dev
         self.steps, self.builds, self.stages, self.events = [], [], [], []
-        self.stage, self.iteration = None, 0
+        self.stage, self.iteration, self.eval_renders = None, 0, 0
 
     def __enter__(self):
         from langsplat4d_torch.data import gt_cache
         loop, on_card = self.loop, self.dev.type == "cuda"
         self.saved = (loop.train_step_packed, loop.build_batch,
-                      loop.scene_reconstruction, loop.maybe_stream_switch)
+                      loop.scene_reconstruction, loop.maybe_stream_switch,
+                      loop.eval_step)
         self.saved_d = {n: getattr(loop.D, n) for n in self.DENSIFY}
-        step, build, stage_fn, switch = self.saved
+        step, build, stage_fn, switch, eval_step = self.saved
 
         def recorded(name, what):
             fn = self.saved_d[name]
@@ -1754,15 +1779,19 @@ class LoopProbe:
                 torch.cuda.synchronize()
             self.stages.append((stage, a[1], time.perf_counter() - t0))
             return out
+        def counted_eval(*a, **k):
+            self.eval_renders += 1
+            return eval_step(*a, **k)
         loop.train_step_packed, loop.build_batch = timed_step, timed_build
         loop.scene_reconstruction = timed_stage
         loop.maybe_stream_switch = probed_switch
+        loop.eval_step = counted_eval
         return self
 
     def __exit__(self, *exc):
         (self.loop.train_step_packed, self.loop.build_batch,
-         self.loop.scene_reconstruction,
-         self.loop.maybe_stream_switch) = self.saved
+         self.loop.scene_reconstruction, self.loop.maybe_stream_switch,
+         self.loop.eval_step) = self.saved
         for name, fn in self.saved_d.items():
             setattr(self.loop.D, name, fn)
 
@@ -1847,8 +1876,9 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
     composite_stream_plain does on the same rows (within TOL, as phase 5
     holds the bench's frame). `step_ms` is phase 8's ms per step, printed beside
     the loop's. Returns (the four training kernels' launches in the loop,
-    the render kernel's launches in render_set, and the inputs of the
-    loop's first plane-gradient call on a time plane, in a list)."""
+    the render kernel's launches in render_set, the inputs of the loop's
+    first plane-gradient call on a time plane, in a list, and each stage's
+    it/s)."""
     from langsplat4d_torch.checkpoint import load_trained_model
     from langsplat4d_torch.field.deformation import DeformConfig
     from langsplat4d_torch.ops import composite as C
@@ -1902,7 +1932,8 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
           f"{np.mean(warm) * 1e3 if warm else float('nan'):.2f} ms "
           f"(host clock, on the producer thread)", flush=True)
     print(f"[20] training(cfg) {total_s:.1f} s for {len(probe.steps)} steps "
-          f"({renders} camera renders); launches: "
+          f"({renders} camera renders, {probe.eval_renders} renders of the "
+          f"debug grid); launches: "
           + ", ".join(f"{n} {v}" for n, v in launches.items())
           + f"; peak memory {peak:.1f} MiB; final num_active "
           f"{state.num_active}", flush=True)
@@ -1926,9 +1957,10 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
             "composite_stream_chunks"]
         bwd = launches["composite_tiles_backward"] + launches[
             "composite_stream_chunks_backward"]
-        if fwd != renders or bwd != renders:
+        if fwd != renders + probe.eval_renders or bwd != renders:
             raise AssertionError(f"kernel launches {fwd} / {bwd} for "
-                                 f"{renders} camera renders")
+                                 f"{renders} camera renders and "
+                                 f"{probe.eval_renders} outside the steps")
         if not launches["composite_tiles"]:
             raise AssertionError("the tile-list kernels never launched")
     fb = probe.losses("fine-base")
@@ -1969,7 +2001,8 @@ def loop_phase(dev, root, step_ms=None, **cfg_kw):
         raise AssertionError("the render kernel did not launch per frame")
     if not (np.isfinite(frame).all() and frame.shape == gt.shape):
         raise AssertionError("the saved model renders a bad frame")
-    return launches, render_launches, plane_probe.kept[:1]
+    rates = {stage: iters / secs for stage, iters, secs in probe.stages}
+    return launches, render_launches, plane_probe.kept[:1], rates
 
 
 # the language autoencoder and the evaluation (phases 22 and 23) at the
@@ -2116,6 +2149,100 @@ class EvalProbe:
         return [a.elapsed_time(b) for a, b in self.events[stage]]
 
 
+def annotate_and_eval(dev, root, ae_ckpt, base, views, it, work, phase,
+                      prompts=EVAL_PROMPTS):
+    """The eval's inputs for the lang renders in `base` (render_set's
+    ours_<it> directory of `views`) and its run: COCO annotations of the
+    `prompts` segments of largest area, each the convex hull of its pixels
+    (scipy), a text cache of their 512-d features and 4 seeded negatives,
+    the renders linked as levels 1-3 under `work`; then
+    `python -m langsplat4d_torch.eval` (its `main`) under an EvalProbe.
+    Prints Mean IoU, the eval's s/frame and, on the card, the CUDA-event ms
+    a frame of its stages. Returns (Mean IoU, the probe, the prompts'
+    segment ids, their names, {(frame, segment): the hull's mask})."""
+    import json as json_mod
+    from scipy.spatial import ConvexHull
+    from langsplat4d_torch.eval import __main__ as cli
+    from langsplat4d_torch.eval import evaluate as E
+    from langsplat4d_torch.eval import relevancy as R
+    from langsplat4d_torch.train import loop
+    on_card = dev.type == "cuda"
+    scene = loop.Scene(root)
+    H, W = views[0].height, views[0].width
+    frames = len(views)
+    # annotations, text cache and the feature layout eval reads
+    lf_dir = os.path.join(root, "language_features")
+    segs = [v.get_language_feature_compact(lf_dir, 1, "video",
+                                           scene.dataset_type)[0]
+            .astype(np.int64) for v in views]
+    areas = np.bincount(np.concatenate([g[g >= 0] for g in segs]),
+                        minlength=N_FEATURES)
+    objs = [int(k) for k in np.argsort(-areas, kind="stable")[:prompts]]
+    names = {k: f"segment{k:02d}" for k in objs}
+    images, anns, hull_masks = [], [], {}
+    for j, seg in enumerate(segs):
+        images.append({"id": j, "file_name": f"{j + 1:05d}_png.rf.{j}.jpg",
+                       "height": H, "width": W})
+        for k in objs:
+            ys, xs = np.nonzero(seg == k)
+            if len(xs) < 16:
+                continue
+            pts = np.stack([xs, ys], 1).astype(np.float64)
+            hull = pts[ConvexHull(pts, qhull_options="QJ").vertices]
+            poly = hull.reshape(-1).tolist()
+            anns.append({"id": len(anns), "image_id": j, "category_id": k + 1,
+                         "bbox": [float(xs.min()), float(ys.min()),
+                                  float(xs.max() - xs.min()),
+                                  float(ys.max() - ys.min())],
+                         "segmentation": [poly]})
+            hull_masks[(j, k)] = E.polygon_to_mask((H, W), hull)
+    os.makedirs(os.path.join(work, "annot", "train"))
+    with open(os.path.join(work, "annot", "train",
+                           "_annotations.coco.json"), "w") as f:
+        json_mod.dump({"categories": [{"id": k + 1, "name": names[k]}
+                                      for k in objs],
+                       "images": images, "annotations": anns}, f)
+    clip = np.load(os.path.join(lf_dir, sorted(os.listdir(lf_dir))[0]
+                                .replace("_s.npy", "_f.npy")))
+    negs = np.random.default_rng(23).normal(size=(4, CLIP_DIM))
+    cache = os.path.join(work, "text_cache.npz")
+    np.savez(cache, **{names[k]: clip[k] for k in objs},
+             **dict(zip(R.NEGATIVES, negs.astype(np.float32))))
+    for level in (1, 2, 3):
+        d = os.path.join(work, "exps", f"smoke_{level}", "video_lang")
+        os.makedirs(d)
+        os.symlink(base, os.path.join(d, f"ours_{it}"))
+    argv = ["--exp_name", "smoke", "--iterations", str(it),
+            "--annotation_folder", os.path.join(work, "annot"),
+            "--ae_ckpt_path", ae_ckpt,
+            "--encoder_hidden_dims", *map(str, AE_ENC),
+            "--decoder_hidden_dims", *map(str, AE_DEC),
+            "--feat_dim", str(AE_ENC[-1]), "--dataset_type", "hypernerf",
+            "--feat_root", os.path.join(work, "exps"),
+            "--text_embedding_cache", cache,
+            "--output_path", os.path.join(work, "out")]
+    if not on_card:
+        argv += ["--device", str(dev)]
+    t0 = time.perf_counter()
+    with EvalProbe(dev) as probe:
+        miou = cli.main(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    n = len(probe.results)
+    print(f"[{phase}] eval: {n} frames, {len(objs)} prompts ({len(anns)} "
+          f"annotations), 3 levels; Mean IoU {miou}; {eval_s / n:.3f} s a "
+          f"frame (wall clock, loading included)", flush=True)
+    if on_card:
+        ms = {k: np.mean(probe.ms(k)) for k in EvalProbe.STAGES}
+        print(f"[{phase}] eval stages, CUDA-event ms a frame: AE decode "
+              f"{ms['decode']:.3f}, relevancy {ms['relevancy']:.3f}, "
+              f"smoothing {ms['smoothing']:.3f}, threshold + IoU "
+              f"{ms['activate'] - ms['relevancy'] - ms['smoothing']:.3f} "
+              f"(activate_stream {ms['activate']:.3f})", flush=True)
+    return miou, probe, objs, names, hull_masks
+
+
 def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
                **cfg_kw):
     """Phase 23: evaluation on phase 20's saved model. render_set in lang
@@ -2132,8 +2259,6 @@ def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
     (eval.py's video dims) on a seeded [H, W, 6] map through
     cal_avg_video_feature, then evaluate_video_feature and
     smooth_similarity. Returns the render kernel's launches."""
-    import json as json_mod
-    from scipy.spatial import ConvexHull
     from langsplat4d_torch.ae.model import VanillaVAE
     from langsplat4d_torch.checkpoint import load_trained_model
     from langsplat4d_torch.eval import __main__ as cli
@@ -2173,79 +2298,12 @@ def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
           f"{fps:.3f} FPS, composite_stream launches {launches}; "
           f"ground-truth maps in gt_npy", flush=True)
 
-    # annotations, text cache and the feature layout eval reads
-    lf_dir = os.path.join(root, "language_features")
-    segs = [v.get_language_feature_compact(lf_dir, 1, "video",
-                                           scene.dataset_type)[0]
-            .astype(np.int64) for v in views]
-    areas = np.bincount(np.concatenate([g[g >= 0] for g in segs]),
-                        minlength=N_FEATURES)
-    objs = [int(k) for k in np.argsort(-areas, kind="stable")[:prompts]]
-    names = {k: f"segment{k:02d}" for k in objs}
-    images, anns, hull_masks = [], [], {}
-    for j, seg in enumerate(segs):
-        images.append({"id": j, "file_name": f"{j + 1:05d}_png.rf.{j}.jpg",
-                       "height": H, "width": W})
-        for k in objs:
-            ys, xs = np.nonzero(seg == k)
-            if len(xs) < 16:
-                continue
-            pts = np.stack([xs, ys], 1).astype(np.float64)
-            hull = pts[ConvexHull(pts, qhull_options="QJ").vertices]
-            poly = hull.reshape(-1).tolist()
-            anns.append({"id": len(anns), "image_id": j, "category_id": k + 1,
-                         "bbox": [float(xs.min()), float(ys.min()),
-                                  float(xs.max() - xs.min()),
-                                  float(ys.max() - ys.min())],
-                         "segmentation": [poly]})
-            hull_masks[(j, k)] = E.polygon_to_mask((H, W), hull)
-    work = os.path.join(root, "eval")
-    os.makedirs(os.path.join(work, "annot", "train"))
-    with open(os.path.join(work, "annot", "train",
-                           "_annotations.coco.json"), "w") as f:
-        json_mod.dump({"categories": [{"id": k + 1, "name": names[k]}
-                                      for k in objs],
-                       "images": images, "annotations": anns}, f)
-    clip = np.load(os.path.join(lf_dir, sorted(os.listdir(lf_dir))[0]
-                                .replace("_s.npy", "_f.npy")))
-    negs = np.random.default_rng(23).normal(size=(4, CLIP_DIM))
-    cache = os.path.join(work, "text_cache.npz")
-    np.savez(cache, **{names[k]: clip[k] for k in objs},
-             **dict(zip(R.NEGATIVES, negs.astype(np.float32))))
-    for level in (1, 2, 3):
-        d = os.path.join(work, "exps", f"smoke_{level}", "video_lang")
-        os.makedirs(d)
-        os.symlink(base, os.path.join(d, f"ours_{it}"))
-    argv = ["--exp_name", "smoke", "--iterations", str(it),
-            "--annotation_folder", os.path.join(work, "annot"),
-            "--ae_ckpt_path", ae_ckpt,
-            "--encoder_hidden_dims", *map(str, AE_ENC),
-            "--decoder_hidden_dims", *map(str, AE_DEC),
-            "--feat_dim", str(AE_ENC[-1]), "--dataset_type", "hypernerf",
-            "--feat_root", os.path.join(work, "exps"),
-            "--text_embedding_cache", cache,
-            "--output_path", os.path.join(work, "out")]
-    if not on_card:
-        argv += ["--device", str(dev)]
-    t0 = time.perf_counter()
-    with EvalProbe(dev) as probe:
-        miou = cli.main(argv)
-    if on_card:
-        torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
+    miou, probe, objs, names, hull_masks = annotate_and_eval(
+        dev, root, ae_ckpt, base, views, it, os.path.join(root, "eval"), 23,
+        prompts)
     n = len(probe.results)
-    print(f"[23] eval: {n} frames, {len(objs)} prompts ({len(anns)} "
-          f"annotations), 3 levels; Mean IoU {miou}; {eval_s / n:.3f} s a "
-          f"frame (wall clock, loading included)", flush=True)
     if not (n == frames and miou is not None and 0.0 <= miou <= 1.0):
         raise AssertionError(f"eval gave Mean IoU {miou} over {n} frames")
-    if on_card:
-        ms = {k: np.mean(probe.ms(k)) for k in EvalProbe.STAGES}
-        print(f"[23] eval stages, CUDA-event ms a frame: AE decode "
-              f"{ms['decode']:.3f}, relevancy {ms['relevancy']:.3f}, "
-              f"smoothing {ms['smoothing']:.3f}, threshold + IoU "
-              f"{ms['activate'] - ms['relevancy'] - ms['smoothing']:.3f} "
-              f"(activate_stream {ms['activate']:.3f})", flush=True)
     sem, pos, neg, rel = probe.first_relevancy[0]
     with torch.no_grad():
         plain = R.relevancy_maps(sem.cpu(), pos.cpu(), neg.cpu())
@@ -2295,6 +2353,426 @@ def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
             and np.isfinite(res["average_iou"])):
         raise AssertionError("the video helpers gave a bad result")
     return launches
+
+
+# phase 24: the discrete stage's budget, fine_lang_iterations + 10000 in
+# the reference (train.py:441), cut as tests/test_e2e.py:145-157 cuts it;
+# the Gaussians whose K-Means the plain version checks
+DISCRETE_ITERS = 200
+KMEANS_PLAIN_ROWS = 256
+def free_port():
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class CallTimer:
+    """Wall seconds of every call of the named module attributes while
+    entered, the device synchronised before and after each call (so the
+    time is the call's own): `calls[name]` lists them."""
+
+    def __init__(self, dev, targets):
+        self.on_card = dev.type == "cuda"
+        self.targets = targets
+        self.calls = {name: [] for _, name in targets}
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            def timed(*a, _fn=fn, _name=name, **k):
+                if self.on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                if self.on_card:
+                    torch.cuda.synchronize()
+                self.calls[_name].append(time.perf_counter() - t0)
+                return out
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def viewer_request(cam, out, stop, port, timeout=600.0):
+    """A viewer on network_gui's protocol, run on a thread: connect to the
+    train CLI's bridge (retrying until it listens), ask for `cam`'s view at
+    its size (the view and projection matrices in the viewer's axes, as the
+    reference's viewer sends them), read the frame and the source path
+    back, hang up. Puts ("frame" [H, W, 3] uint8, "source", "seconds") or
+    ("error") into `out`."""
+    import json as json_mod
+    import socket
+    import struct
+    w, h = cam.width, cam.height
+    view = cam.world_view_transform.astype(np.float32).copy()
+    proj = cam.full_proj_transform.astype(np.float32).copy()
+    view[:, 1:3] *= -1
+    proj[:, 1] *= -1
+    msg = json_mod.dumps({
+        "resolution_x": w, "resolution_y": h, "train": True,
+        "fov_y": cam.fovy, "fov_x": cam.fovx, "z_near": 0.01,
+        "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+        "keep_alive": True, "scaling_modifier": 1.0,
+        "view_matrix": view.reshape(-1).tolist(),
+        "view_projection_matrix": proj.reshape(-1).tolist()}).encode()
+    t_end = time.perf_counter() + timeout
+    try:
+        while True:
+            try:
+                conn = socket.create_connection(("127.0.0.1", port),
+                                                timeout=5)
+                break
+            except OSError:
+                if stop.is_set() or time.perf_counter() > t_end:
+                    raise
+                time.sleep(0.05)
+        with conn:
+            conn.settimeout(timeout)
+            t0 = time.perf_counter()
+            conn.sendall(struct.pack("<I", len(msg)) + msg)
+            buf = b""
+            while len(buf) < w * h * 3 + 4:
+                part = conn.recv(1 << 20)
+                if not part:
+                    raise ConnectionError("the bridge hung up")
+                buf += part
+            n_src = struct.unpack("<I", buf[w * h * 3:w * h * 3 + 4])[0]
+            while len(buf) < w * h * 3 + 4 + n_src:
+                part = conn.recv(1 << 20)
+                if not part:
+                    raise ConnectionError("the bridge hung up")
+                buf += part
+            out["seconds"] = time.perf_counter() - t0
+            out["frame"] = np.frombuffer(buf[:w * h * 3], np.uint8).reshape(
+                h, w, 3)
+            out["source"] = buf[w * h * 3 + 4:].decode("ascii")
+    except Exception as e:         # reported to, and raised by, the caller
+        out["error"] = repr(e)
+
+
+def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
+              cuts=LOOP_CUTS, hidden=None, discrete_iters=DISCRETE_ITERS):
+    """Phase 24: scripts/train_eval.sh's flow through the port's CLIs (each
+    its `main(argv)`) on phase 19's scene and phase 22's export.
+    Phase A: `python -m langsplat4d_torch.train` with
+    configs/hypernerf/default.py at full width, phase 20's depth cuts,
+    --fine_lang_iterations 0 --no_dlang 0 and a checkpoint at fine-base's
+    last iteration; the preset's render-process snapshots, the debug grid
+    and the viewer bridge on a free port, where one request of a
+    viewer (`viewer_request`) is answered with a frame of the camera's
+    size. Phase B: use_discrete_lang_f=t, --resume_from_final_stage 1
+    --init_from_stage fine-base from phase A's checkpoint, the stage cut to
+    DISCRETE_ITERS and saved there. Then `python -m langsplat4d_torch.render`
+    in lang mode at fine-lang-discrete over the video split, frame 0's
+    composite held against the plain version on its rows, and
+    `python -m langsplat4d_torch.eval` on those renders as levels 1-3.
+    Last, prepare_discrete_stage in both modes on phase 20's saved state,
+    timed, its K-Means held against the plain version on
+    KMEANS_PLAIN_ROWS Gaussians. Then `snapshot_turns`. Prints it/s per
+    stage beside phase 20's
+    (`loop_rates`), the snapshots' and the grid's cost, the render's FPS,
+    Mean IoU and s/frame. `iters`, `cuts`, `hidden` and `discrete_iters`
+    are for a rehearsal on the CPU (the card runs the preset's widths).
+    Returns the kernels' launches in the CLIs' runs (train, render)."""
+    import threading
+    from langsplat4d_torch.checkpoint import load_trained_model
+    from langsplat4d_torch.field.deformation import DeformConfig
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.ops import grid_sample as G
+    from langsplat4d_torch.ops.kmeans import N_INIT, kmeans, kmeans_plain
+    from langsplat4d_torch.render import __main__ as render_cli
+    from langsplat4d_torch.train import __main__ as train_cli
+    from langsplat4d_torch.train import loop
+    from langsplat4d_torch.train.trainstate import make_train_state
+    on_card = dev.type == "cuda"
+    model_path = os.path.join(root, "cli_model")
+    cfg_file = os.path.join(root, "cli_config.py")
+    with open(cfg_file, "w") as f:
+        f.write(f"_base_ = "
+                f"{os.path.join(REPO, 'configs', 'hypernerf', 'default.py')!r}"
+                "\nwatchdog_execv = False   # a trip fails the run\n"
+                + (f"ModelHiddenParams = {hidden!r}\n" if hidden else ""))
+    names = ("composite_tiles", "composite_tiles_backward",
+             "composite_stream", "composite_stream_chunks",
+             "composite_stream_chunks_backward")
+    for n in names:
+        getattr(C, n).launches = 0
+    G.plane_grad.launches = 0
+    saved_env = {k: os.environ.get(k) for k in ("ExpsDir",
+                                                "use_discrete_lang_f")}
+    os.environ["ExpsDir"] = os.path.join(root, "exps")
+    device = [] if on_card else ["--device", str(dev)]
+    base = ["--source_path", root, "--model_path", model_path,
+            "--expname", "smoke_cli", "--configs", cfg_file,
+            "--language_features_name", f"language_features_dim{AE_ENC[-1]}",
+            "--feature_level", "1"] + device
+    flags = dict(zip(("coarse_base_iterations", "coarse_lang_iterations",
+                      "fine_base_iterations"), iters[:3]), **cuts)
+    flags = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+    print("[24] phase A depth cuts: " + " ".join(flags)
+          + " (fine_lang_iterations 0 as scripts/train_eval.sh)", flush=True)
+    fb_last = iters[2]
+    argv_a = base + flags + ["--fine_lang_iterations", "0", "--no_dlang", "0",
+                            "--checkpoint_iterations", str(fb_last)]
+    port = free_port()
+    scene = loop.Scene(root)
+    reply, stop = {}, threading.Event()
+    client = threading.Thread(target=viewer_request,
+                              args=(scene.getTrainCameras()[0], reply, stop,
+                                    port), daemon=True)
+    try:
+        with LoopProbe(dev) as probe_a, CallTimer(dev, [
+                (loop, "render_process_snapshot"),
+                (loop, "_debug_grid")]) as costs:
+            client.start()
+            t0 = time.perf_counter()
+            state = train_cli.main(argv_a + ["--port", str(port)])
+            a_s = time.perf_counter() - t0
+        stop.set()
+        client.join(timeout=60)
+        for stage, n_it, secs in probe_a.stages:
+            ms = probe_a.step_ms(stage)
+            was = (loop_rates or {}).get(stage)
+            print(f"[24] phase A {stage}: {n_it} iterations in {secs:.2f} s, "
+                  f"{n_it / secs:.3f} it/s through the train CLI"
+                  + (f" (phase 20's training(cfg): {was:.3f})" if was else "")
+                  + f"; CUDA-event step median "
+                  f"{np.median(ms) if ms else float('nan'):.3f} ms",
+                  flush=True)
+        a_rates = rates_of(probe_a)
+        snaps, grids = (costs.calls["render_process_snapshot"],
+                        costs.calls["_debug_grid"])
+        print(f"[24] phase A {a_s:.1f} s in all, final num_active "
+              f"{state.num_active}; on the training thread (the renders and "
+              f"the copies' start; the encode and write run on the loop's "
+              f"writer thread): render-process snapshots {len(snaps)} "
+              f"calls, {sum(snaps):.2f} s ({np.mean(snaps) * 1e3 if snaps else 0:.1f} "
+              f"ms each); debug grids {len(grids)} calls, "
+              f"{sum(grids):.2f} s ({np.mean(grids) * 1e3 if grids else 0:.1f} ms "
+              f"each): {100 * (sum(snaps) + sum(grids)) / a_s:.1f}% of the "
+              f"phase", flush=True)
+        cam0 = scene.getTrainCameras()[0]
+        frame = reply.get("frame")
+        print(f"[24] viewer bridge on port {port}: "
+              + (f"frame {frame.shape[1]}x{frame.shape[0]} in "
+                 f"{reply['seconds'] * 1e3:.1f} ms, source "
+                 f"{reply['source']!r}" if frame is not None
+                 else f"no frame ({reply.get('error')})"), flush=True)
+        if (frame is None or frame.shape != (cam0.height, cam0.width, 3)
+                or reply["source"] != root or not frame.std() > 0):
+            raise AssertionError("the viewer bridge sent no frame of the "
+                                 "camera's size")
+        if not (snaps and grids):
+            raise AssertionError("no render-process snapshot or debug grid")
+        shots = os.listdir(os.path.join(model_path, "render_process"))
+        grid_files = os.listdir(os.path.join(model_path,
+                                             "training_output_img"))
+        if len(shots) < len(snaps) or len(grid_files) != len(grids):
+            raise AssertionError("the snapshots or grids were not written")
+        ckpt = os.path.join(model_path, f"chkpnt_fine-base_{fb_last}.pth")
+        if not os.path.isfile(ckpt):
+            raise AssertionError(f"no checkpoint {ckpt}")
+        for stage in ("coarse-base", "coarse-lang", "fine-base"):
+            if not np.isfinite(probe_a.losses(stage)).all():
+                raise AssertionError(f"a {stage} loss is not finite")
+        del state
+
+        # phase B: the discrete stage from phase A's checkpoint
+        os.environ["use_discrete_lang_f"] = "t"
+        argv_b = base + ["--fine_lang_iterations", "0",
+                         "--resume_from_final_stage", "1",
+                         "--init_from_stage", "fine-base",
+                         "--start_checkpoint", ckpt,
+                         "--save_iterations", str(discrete_iters)]
+        print(f"[24] phase B depth cut: fine-lang-discrete "
+              f"{discrete_iters} iterations of fine_lang_iterations 0 + "
+              f"10000 (train.py:441), as tests/test_e2e.py:145-157 cuts "
+              f"it; saved at {discrete_iters}", flush=True)
+        with LoopProbe(dev) as probe_b, CallTimer(
+                dev, [(loop, "prepare_discrete_stage")]) as prep:
+            whole = loop.scene_reconstruction
+
+            def cut(cfg, scene_, state_, dcfg, stage, joint, n_it, timer,
+                    **kw):
+                return whole(cfg, scene_, state_, dcfg, stage, joint,
+                             min(n_it, discrete_iters), timer, **kw)
+            loop.scene_reconstruction = cut
+            try:
+                t0 = time.perf_counter()
+                state = train_cli.main(argv_b)
+                b_s = time.perf_counter() - t0
+            finally:
+                loop.scene_reconstruction = whole
+        (stage, n_it, secs), = probe_b.stages
+        lf = state.params["language_feature"]
+        ls = probe_b.losses(stage)
+        print(f"[24] phase B {stage}: {n_it} iterations in {secs:.2f} s, "
+              f"{n_it / secs:.3f} it/s ({b_s:.1f} s with the checkpoint "
+              f"read); prepare_discrete_stage (fine-base) "
+              f"{prep.calls['prepare_discrete_stage'][0]:.3f} s; "
+              f"language_feature {tuple(lf.shape)}; loss, mean of each 50 "
+              f"iterations: " + " ".join(
+                  f"{np.mean(ls[i:i + 50]):.4f}"
+                  for i in range(0, len(ls), 50)), flush=True)
+        if (stage != "fine-lang-discrete" or n_it != discrete_iters
+                or lf.shape[1] != state.deform.cfg.centers_num * AE_ENC[-1]
+                or not np.isfinite(ls).all()):
+            raise AssertionError("phase B did not train the discrete stage")
+        del state
+    finally:
+        stop.set()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # the render CLI at fine-lang-discrete, lang mode, the video split
+    argv_r = ["--model_path", model_path, "--source_path", root,
+              "--configs", cfg_file, "--mode", "lang",
+              "--load_stage", "fine-lang-discrete", "--skip_train",
+              "--skip_test", "--novideo", "1", "--noimage", "1"] + device
+    before = C.composite_stream.launches
+    with FirstComposite() as first:
+        fps = render_cli.main(argv_r)["video"]
+    render_launches = C.composite_stream.launches - before
+    first.hold(24, "the render CLI's frame 0 at fine-lang-discrete")
+    out = os.path.join(model_path, "video_lang", f"ours_{discrete_iters}")
+    video = list(scene.getVideoCameras())
+    maps = sorted(os.listdir(os.path.join(out, "renders_npy")))
+    m0 = np.load(os.path.join(out, "renders_npy", maps[0]))
+    print(f"[24] render CLI: {len(maps)} video frames in lang mode at "
+          f"fine-lang-discrete, FPS {fps:.3f}, composite_stream launches "
+          f"{render_launches}", flush=True)
+    if (len(maps) != len(video) or m0.shape != (video[0].height,
+                                                video[0].width, AE_ENC[-1])
+            or not np.isfinite(m0).all()):
+        raise AssertionError("the render CLI wrote bad maps")
+    if on_card and render_launches < len(video):
+        raise AssertionError("the render kernel did not launch per frame")
+    launches = {n: getattr(C, n).launches for n in names}
+    launches["plane_grad"] = G.plane_grad.launches
+
+    # the eval CLI on those renders
+    miou, probe, *_ = annotate_and_eval(dev, root, ae_ckpt, out, video,
+                                        discrete_iters,
+                                        os.path.join(root, "eval_cli"), 24)
+    if not (len(probe.results) == len(video) and miou is not None
+            and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"the eval gave Mean IoU {miou}")
+
+    # prepare_discrete_stage in both modes on phase 20's saved state
+    model20 = os.path.join(root, "model")
+    cfg = loop_config(root, model20, quiet=True, hidden=hidden)
+    dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
+                                    max_sh_degree=cfg.model.sh_degree)
+    model, _ = load_trained_model(model20, "fine-lang", -1, dcfg,
+                                  aabb=scene.aabb, device=dev)
+    secs = {}
+    for mode in ("fine-base", "fine-lang"):
+        st = make_train_state(model.gaussians, model.deform, model.aabb)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = loop.prepare_discrete_stage(cfg, st, dcfg, init_from_stage=mode)
+        if on_card:
+            torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+    n = st.num_active
+    lf = model.gaussians.language_feature.detach().cpu().numpy()
+    lf_n = torch.from_numpy(lf / (np.linalg.norm(lf, axis=-1, keepdims=True)
+                                  + 1e-9)).to(dev)
+    t0 = time.perf_counter()
+    samples = loop.deformed_lang_samples(st, dcfg, lf_n)
+    if on_card:
+        torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    rows = samples[:KMEANS_PLAIN_ROWS]
+    c_k, i_k = kmeans(rows, cfg.runtime.centers_num)
+    t0 = time.perf_counter()
+    c_p, i_p = kmeans_plain(rows.cpu(), cfg.runtime.centers_num)
+    plain_s = time.perf_counter() - t0
+    stage_rows = st.params["language_feature"][:KMEANS_PLAIN_ROWS].reshape(
+        KMEANS_PLAIN_ROWS, AE_ENC[-1], -1).permute(0, 2, 1).cpu()
+    i_err = float(((i_k.cpu() - i_p).abs() / i_p.clamp(min=1e-12)).max())
+    c_err = float((c_k.cpu() - c_p).abs().max())
+    s_err = float((stage_rows - c_p).abs().max())
+    print(f"[24] prepare_discrete_stage on phase 20's saved state ({n} "
+          f"Gaussians): fine-base {secs['fine-base']:.3f} s; fine-lang "
+          f"{secs['fine-lang']:.3f} s (100 deformed samples "
+          f"{sample_s:.3f} s, then the batched K-Means, k "
+          f"{cfg.runtime.centers_num}, n_init {N_INIT}); the "
+          f"first {KMEANS_PLAIN_ROWS} Gaussians' K-Means against the plain "
+          f"version ({plain_s:.2f} s on the host): inertia rel err "
+          f"{i_err:.3g}, centres max abs err {c_err:.3g}, the stage's "
+          f"centres {s_err:.3g} (bound 1e-4)", flush=True)
+    if not (i_err <= 1e-4 and c_err <= 1e-4 and s_err <= 1e-4):
+        raise AssertionError("the K-Means differs from its plain version")
+    if on_card:
+        for k in ("composite_tiles", "composite_tiles_backward",
+                  "composite_stream", "plane_grad"):
+            if not launches[k]:
+                raise AssertionError(f"{k} never launched in phase 24")
+    print("[24] launches in the CLIs' runs: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()), flush=True)
+    snapshot_turns(dev, root, argv_a, cfg_file, model_path, a_rates)
+    return launches
+
+
+def rates_of(probe):
+    """{stage: it/s} of a LoopProbe's stages, and "all": every stage's
+    iterations over their seconds."""
+    rates = {stage: n_it / secs for stage, n_it, secs in probe.stages}
+    rates["all"] = (sum(n for _, n, _ in probe.stages)
+                    / sum(t for _, _, t in probe.stages))
+    return rates
+
+
+def snapshot_turns(dev, root, argv_a, cfg_file, model_path, first):
+    """Phase A's it/s with and without the preset's render-process
+    snapshots, in turns: the phase's own run (`first`, snapshots on, the
+    viewer served), then three more through the train CLI with the same
+    flags and no viewer (--port -1): off, off, on, each into its own model
+    path. The debug grid is on in all four."""
+    from langsplat4d_torch.train import __main__ as train_cli
+    off_cfg = os.path.join(root, "cli_config_off.py")
+    with open(off_cfg, "w") as f:
+        f.write(f"_base_ = {cfg_file!r}\n"
+                "ModelParams = dict(render_process=False)\n")
+    saved = os.environ.get("ExpsDir")
+    os.environ["ExpsDir"] = os.path.join(root, "exps")
+    turns = [(True, first)]
+    try:
+        for i, on in enumerate((False, False, True)):
+            argv = [os.path.join(root, f"cli_turn{i}") if a == model_path
+                    else (cfg_file if on else off_cfg) if a == cfg_file
+                    else a for a in argv_a] + ["--port", "-1"]
+            with LoopProbe(dev) as probe:
+                train_cli.main(argv)
+            shots = os.path.join(root, f"cli_turn{i}", "render_process")
+            if os.path.isdir(shots) != on:
+                raise AssertionError("render_process did not follow the "
+                                     "config")
+            turns.append((on, rates_of(probe)))
+    finally:
+        if saved is None:
+            os.environ.pop("ExpsDir", None)
+        else:
+            os.environ["ExpsDir"] = saved
+    for stage in first:
+        on = [r[stage] for o, r in turns if o]
+        off = [r[stage] for o, r in turns if not o]
+        print(f"[24] phase A {stage} in turns (on, off, off, on), it/s: "
+              + ", ".join(f"{r[stage]:.3f}" for _, r in turns)
+              + f"; snapshots on mean {np.mean(on):.3f}, off mean "
+              f"{np.mean(off):.3f}: on/off {np.mean(on) / np.mean(off):.4f}",
+              flush=True)
 
 
 def plane_grad_cases():
@@ -2491,6 +2969,125 @@ def plane_grad_entry(inputs, launches):
                 library_ms=l_ms, loop_launches=launches)
 
 
+# the DenseGrid of the `empty_voxel` gate (field/hexplane.py): one channel
+# over 64^3 cells; the loop's capacity of rows, most of them padding
+DENSE_WORLD, DENSE_ROWS, DENSE_PADDED = (64, 64, 64), 434_176, 0.78
+
+
+def dense_grid_inputs(dev, seed=0, n=DENSE_ROWS, padded=DENSE_PADDED):
+    """(grid [1, 64, 64, 64], ind [n, 3], g [n, 1]) on `dev`, from a seed:
+    points spread over the grid and past it (corners off the grid read 0),
+    a share of them padding (one position, a zero gradient), as a
+    GaussianState's rows reach dense_grid_query's backward."""
+    gen = torch.Generator().manual_seed(seed)
+    grid = torch.rand(1, *DENSE_WORLD, generator=gen) + 0.5
+    ind = torch.rand(n, 3, generator=gen) * 2.2 - 1.1
+    g = torch.randn(n, 1, generator=gen)
+    k = int(n * padded)
+    if k:
+        ind[n - k:] = 0.0
+        g[n - k:] = 0.0
+    return grid.to(dev), ind.to(dev), g.to(dev)
+
+
+def compare_dense_grid_case(dev, seed=0, **kw):
+    """dense_grid_grad (csrc/plane_grad.cu's eight corners a point and its
+    segmented sums) against dense_grid_grad_plain: the grid's and the
+    points' gradients each within the repo's gradient bound relative to
+    its largest entry (the sums run in another order), the corners' keys
+    and weights those of dense_grid_keys bit for bit, two calls bit-equal.
+    Returns (max abs err of the grid gradient, of the points', the largest
+    scaled excess, bit-equal)."""
+    from langsplat4d_torch.ops import grid_sample as G
+    grid, ind, g = dense_grid_inputs(dev, seed, **kw)
+    gg, gi = G.dense_grid_grad(grid, ind, g)
+    gg2, gi2 = G.dense_grid_grad(grid, ind, g)
+    rg, ri = G.dense_grid_grad_plain(grid, ind, g)
+    keys, wts, _ = G.dense_grid_corners(grid, ind, g)
+    want_keys, want_wts = G.dense_grid_keys(grid.shape, ind, g)
+    torch.cuda.synchronize()
+    excess = max(scaled_errors(gg, rg)[1], scaled_errors(gi, ri)[1])
+    same = (torch.equal(gg, gg2) and torch.equal(gi, gi2)
+            and torch.equal(keys, want_keys) and torch.equal(wts, want_wts))
+    return (float((gg - rg).abs().max()), float((gi - ri).abs().max()),
+            excess, same)
+
+
+def dense_grid_phase(dev, root, iters=5):
+    """Phase 21's check of the DenseGrid backward (`empty_voxel`, which no
+    preset sets): the kernel against its plain version on dense_grid_inputs
+    (and on a small case), two calls bit-equal; two identical runs of
+    `iters` fine-base iterations with `empty_voxel` on, which must be
+    bit-equal; kernel, plain and library times (aten's
+    grid_sampler_3d_backward, which adds with atomics) and the bound.
+    Returns the kernels line's entry, its launches those of the two runs."""
+    import copy
+    from langsplat4d_torch.ops import grid_sample as G
+    from langsplat4d_torch.train import loop
+    from langsplat4d_torch.utils.timer import Timer
+    for kw in (dict(), dict(n=2_000, padded=0.2)):
+        e_g, e_i, excess, same = compare_dense_grid_case(dev, **kw)
+        print(f"[21] dense_grid_grad ({kw.get('n', DENSE_ROWS)} points): max "
+              f"abs err vs plain {e_g:.3g} (grid), {e_i:.3g} (points), "
+              f"excess over the gradient bound {excess:.3g}; two calls, "
+              f"and the corners against dense_grid_keys, bit-equal: {same}",
+              flush=True)
+        if not (excess <= 0 and same):
+            raise AssertionError("dense_grid_grad beyond the bound, not "
+                                 "reproducible or off dense_grid_keys")
+    cfg = loop_config(root, "", hidden={"empty_voxel": True}, quiet=True)
+    scene = loop.Scene(root)
+    state0, dcfg = loop.init_state_from_scene(cfg, scene,
+                                              seed=cfg.extras.seed,
+                                              device=dev)
+    with torch.no_grad():     # a grid that is not all ones, so it gates
+        vox = state0.deform.deformation_net.empty_voxel.grid
+        vox.copy_(torch.rand(vox.shape, generator=torch.Generator()
+                             .manual_seed(21)).to(dev) + 0.5)
+    G.dense_grid_grad.launches = 0
+    runs = [loop.scene_reconstruction(cfg, scene, copy.deepcopy(state0),
+                                      dcfg, "fine-base", False, iters,
+                                      Timer()) for _ in range(2)]
+    launches = G.dense_grid_grad.launches
+    diff = max(float((p.detach() - runs[1].leaves()[n].detach()).abs().max())
+               for n, p in runs[0].leaves().items())
+    vox_moved = float((runs[0].leaves()[
+        "deform.deformation_net.empty_voxel.grid"].detach()
+        - vox.detach()).abs().max())
+    print(f"[21] two identical fine-base runs of {iters} iterations with "
+          f"empty_voxel: largest difference {diff:.3g}; the grid moved by "
+          f"up to {vox_moved:.3g}; dense_grid_grad launches {launches}",
+          flush=True)
+    if diff != 0 or not launches or not vox_moved > 0:
+        raise AssertionError("the empty_voxel runs differ, or the grid "
+                             "gradient never ran")
+    del runs, state0
+    grid, ind, g = dense_grid_inputs(dev)
+    gg, gi = G.dense_grid_grad(grid, ind, g)
+    rg, ri = G.dense_grid_grad_plain(grid, ind, g)
+    err = max(float((gg - rg).abs().max()), float((gi - ri).abs().max()))
+    k_ms = time_ms(lambda: G.dense_grid_grad(grid, ind, g), 20)
+    p_ms = time_ms(lambda: G.dense_grid_grad_plain(grid, ind, g), 5)
+    go = g.T.reshape(1, 1, 1, 1, -1).contiguous()
+    inp, pos = grid[None], ind.reshape(1, 1, 1, -1, 3)
+    l_ms = time_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+        go, inp, pos, 0, 0, True, [True, True]), 20)
+    n, cells = ind.shape[0], grid.numel()
+    live = int((g != 0).any(1).sum())
+    # read ind, g, the grid; write both gradients. Per live point and corner
+    # the grid term (1 multiply, 1 add) and the points' (3 x 2 multiplies,
+    # 3 adds, the weight's 2 multiplies); the padded rows their points'
+    b = bound(4 * (n * 3 + n + cells + cells + n * 3),
+              live * 8 * 13 + (n - live) * 8 * 11)
+    print(f"[21] dense_grid_grad on grid {list(grid.shape)}, {n} points "
+          f"({live} with a gradient): kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, aten's grid_sampler_3d_backward {l_ms:.3f} ms; "
+          f"bound {b[0]:.4f} ms by {b[1]}", flush=True)
+    return dict(name="dense_grid_grad", launches=launches, max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
+                library_ms=l_ms, loop_launches=0)
+
+
 def adam_step_cap(steps):
     """The most |m_hat| / sqrt(v_hat) reaches in any of Adam's first `steps`
     steps (Cauchy-Schwarz over the moments' weights; 1 at the first step):
@@ -2530,7 +3127,7 @@ def adam_allowance(grads, lrs, name, like, cap):
     return allowed
 
 
-def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=20):
+def determinism_phase(dev, root, iters=5, hidden=None, turn_iters=10):
     """Phase 21: the first `iters` iterations of coarse-base from one
     initial state with the kernels and with their plain versions. The plain
     run holds the kernels' run as phase 9 holds a step: every step's
@@ -3085,7 +3682,8 @@ def main():
     for fn, (regs, stack, spill) in res.items():
         print(f"[6] plane_grad: {fn}: {regs} registers, {stack} bytes stack "
               f"frame, {spill} bytes spilled", flush=True)
-    if len(res) != 7:         # corners, chunk_sums and merge_runs at 8/16/32
+    if len(res) != 8:         # corners, dense_corners, chunk_sums and
+        # merge_runs at 8/16/32
         raise AssertionError(f"plane_grad: ptxas figures of {sorted(res)}")
     if any(stack or spill for _, stack, spill in res.values()):
         raise AssertionError("plane_grad: a stack frame or a spill")
@@ -3166,7 +3764,7 @@ def main():
     ae_ckpt = ae_phase(dev, scene_root)
 
     # 20. training(cfg) from that scene at full width, and the saved model
-    loop_launches, render_launches, plane_inputs = loop_phase(
+    loop_launches, render_launches, plane_inputs, loop_rates = loop_phase(
         dev, scene_root, step_ms=list_ms)
     loop_launches["composite_stream"] = render_launches
     for e in entries:
@@ -3177,6 +3775,7 @@ def main():
     determinism_phase(dev, scene_root)
     entries.append(plane_grad_entry(plane_inputs[0],
                                     loop_launches["plane_grad"]))
+    entries.append(dense_grid_phase(dev, scene_root))
     del plane_inputs
     torch.cuda.empty_cache()
 
@@ -3186,6 +3785,13 @@ def main():
     for e in entries:
         e["eval_launches"] = (eval_launches if e["name"] == "composite_stream"
                               else 0)
+    torch.cuda.empty_cache()
+
+    # 24. scripts/train_eval.sh through the port's CLIs: train (phase A and
+    # the discrete phase B), render, eval; the discrete stage's K-Means
+    cli_launches = cli_phase(dev, scene_root, ae_ckpt, loop_rates)
+    for e in entries:
+        e["cli_launches"] = cli_launches.get(e["name"], 0)
     shutil.rmtree(scene_root, ignore_errors=True)
     torch.cuda.empty_cache()
 

@@ -10,7 +10,8 @@ Linear i at 3i, its BatchNorm at 3i-2; decoder Linear i at 2i), so
 `best_ckpt.pth` files interchange with the reference and with the JAX
 package. BatchNorm1d in training mode normalises with the biased batch
 variance and keeps the unbiased one in its running stats (momentum 0.1, eps
-1e-5), as the JAX package's `_batchnorm` does.
+1e-5), as the JAX package's `_batchnorm` does; a batch of one row, which
+`nn.BatchNorm1d` refuses in training mode, normalises to 0 as there.
 """
 from __future__ import annotations
 
@@ -26,12 +27,33 @@ from langsplat4d_torch.field.nets import init_linear_
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU default
 
 
+class BatchNorm1d(nn.BatchNorm1d):
+    """`nn.BatchNorm1d` with its state-dict keys, which in training mode
+    also takes a batch of one row, as the JAX package's `_batchnorm` does
+    (langsplat4d/ae/model.py:45-58): the biased variance is 0, so the output
+    is (x - mean) * rsqrt(0 + eps) = 0 before the affine, and the running
+    variance takes var * n / max(n - 1, 1) = 0."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and x.shape[0] == 1):
+            return super().forward(x)
+        mean = x.mean(0)
+        var = x.var(0, unbiased=False)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias
+
+
 def _encoder(dims: Sequence[int], feature_dim: int, act, generator):
     layers = []
     prev = feature_dim
     for i, d in enumerate(dims):
         if i > 0:
-            layers += [nn.BatchNorm1d(prev), act()]
+            layers += [BatchNorm1d(prev), act()]
         layers.append(init_linear_(nn.Linear(prev, d), generator))
         prev = d
     return nn.ModuleList(layers)

@@ -29,6 +29,10 @@
 //    reaches, in block order.
 // Every cell is written by exactly one thread and every sum has one order.
 // Cells no entry reaches are the caller's zeros.
+//
+// The DenseGrid's trilinear sample (grid_sample 3-D, align_corners, zeros
+// outside) takes the same path with `dense_corners` as step 1: eight
+// corners a point, a corner off the grid keyed past it as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,6 +107,75 @@ __global__ void corners(const float* __restrict__ coords,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     keys[(int64_t)j * n + i] = live ? cell[j] : hw + i;
+    wts[(int64_t)j * n + i] = wt[j];
+  }
+}
+
+// The trilinear sample's step 1, a thread per point, for a grid [C, D, H, W]
+// and ind [n, 3] = (x, y, z) indexing W, H and D: aten's unnormalize (no
+// clip: zeros outside), the points' gradient summed over the channels and
+// the eight corners in aten's order (grid_sampler_3d_backward_kernel), and
+// the corners' keys and weights, corner j (tnw, tne, tsw, tse, bnw, bne,
+// bsw, bse: x fastest) of point i at entry j * n + i. A corner off the grid
+// reads 0, and it and every corner of a point whose output gradient is all
+// 0 are keyed past the grid (DHW + point).
+__global__ void dense_corners(const float* __restrict__ ind,
+                              const float* __restrict__ grid,
+                              const float* __restrict__ g,
+                              float* __restrict__ g_ind,
+                              int* __restrict__ keys,
+                              float* __restrict__ wts, int n, int C, int D,
+                              int H, int W) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float ix = ((ind[3 * i] + 1.f) / 2.f) * (float)(W - 1);
+  const float iy = ((ind[3 * i + 1] + 1.f) / 2.f) * (float)(H - 1);
+  const float iz = ((ind[3 * i + 2] + 1.f) / 2.f) * (float)(D - 1);
+  const float x0 = floorf(ix), y0 = floorf(iy), z0 = floorf(iz);
+  // the near and the far corner's weight along each axis
+  const float nx = x0 + 1.f - ix, fx = ix - x0;
+  const float ny = y0 + 1.f - iy, fy = iy - y0;
+  const float nz = z0 + 1.f - iz, fz = iz - z0;
+  const int xi = (int)x0, yi = (int)y0, zi = (int)z0;
+  const int64_t hw = (int64_t)H * W, dhw = (int64_t)D * hw;
+  int cell[8];
+  bool on[8];
+  float wt[8], dx[8], dy[8], dz[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int ox = j & 1, oy = (j >> 1) & 1, oz = j >> 2;
+    const int x = xi + ox, y = yi + oy, z = zi + oz;
+    on[j] = x >= 0 && x < W && y >= 0 && y < H && z >= 0 && z < D;
+    const int cx = min(max(x, 0), W - 1), cy = min(max(y, 0), H - 1);
+    const int cz = min(max(z, 0), D - 1);
+    cell[j] = (int)((cz * (int64_t)H + cy) * W + cx);
+    const float wx = ox ? fx : nx, wy = oy ? fy : ny, wz = oz ? fz : nz;
+    wt[j] = wx * wy * wz;
+    dx[j] = (ox ? 1.f : -1.f) * wy * wz;
+    dy[j] = (oy ? 1.f : -1.f) * wx * wz;
+    dz[j] = (oz ? 1.f : -1.f) * wx * wy;
+  }
+  float gix = 0.f, giy = 0.f, giz = 0.f;
+  bool live = false;
+  for (int c = 0; c < C; ++c) {
+    const float go = g[(int64_t)i * C + c];
+    live |= go != 0.f;
+    const float* p = grid + (int64_t)c * dhw;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!on[j]) continue;
+      const float v = p[cell[j]];
+      gix += v * dx[j] * go;
+      giy += v * dy[j] * go;
+      giz += v * dz[j] * go;
+    }
+  }
+  g_ind[3 * i] = gix * ((float)(W - 1) / 2.f);
+  g_ind[3 * i + 1] = giy * ((float)(H - 1) / 2.f);
+  g_ind[3 * i + 2] = giz * ((float)(D - 1) / 2.f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    keys[(int64_t)j * n + i] = (live && on[j]) ? cell[j] : (int)(dhw + i);
     wts[(int64_t)j * n + i] = wt[j];
   }
 }
@@ -241,6 +314,22 @@ extern "C" int ls4d_plane_grad_corners(const float* coords, const float* plane,
   if (n <= 0) return cudaSuccess;
   corners<<<(n + 255) / 256, 256, 0, stream>>>(coords, plane, g, g_coords,
                                                keys, wts, n, C, H, W);
+  return (int)cudaGetLastError();
+}
+
+// The trilinear sample's step 1: g_ind [n, 3], keys [8n] and wts [8n] from
+// ind [n, 3], the grid [C, D, H, W] and the output gradient g [n, C];
+// D H W + n must fit an int.
+extern "C" int ls4d_dense_grid_corners(const float* ind, const float* grid,
+                                       const float* g, float* g_ind,
+                                       int* keys, float* wts, int n, int C,
+                                       int D, int H, int W,
+                                       cudaStream_t stream) {
+  if (C < 1 || C > MAX_C) return cudaErrorInvalidValue;
+  if ((int64_t)D * H * W + n > 0x7fffffff) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaSuccess;
+  dense_corners<<<(n + 255) / 256, 256, 0, stream>>>(ind, grid, g, g_ind,
+                                                     keys, wts, n, C, D, H, W);
   return (int)cudaGetLastError();
 }
 

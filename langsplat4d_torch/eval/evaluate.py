@@ -6,8 +6,10 @@ own, with OpenCV's pixel rule), the avg-pool heatmap smoothing, the
 smooth_cuda mask cleanup, and `activate_stream`: relevancy -> smoothing ->
 threshold -> IoU per level -> best level. The maps stay on their device;
 only the IoUs, levels, scores and thresholds go to the host, once a frame.
-Pictures are written through the port's PNG encoder; the two plot helpers
-need matplotlib, imported when they are called.
+The ground-truth masks are written as JPEG through the port's encoder
+(data/jpeg.py), as the JAX package writes them through cv2, the other
+pictures as PNG; the two plot helpers need matplotlib, imported when they
+are called.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from langsplat4d_torch.data.jpeg import write_jpeg
 from langsplat4d_torch.data.png import png_bytes
 from langsplat4d_torch.eval.colormaps import ColormapOptions, apply_colormap
 from langsplat4d_torch.eval.relevancy import relevancy_maps
@@ -124,12 +127,19 @@ def _write_png(img: np.ndarray, save_path: Path) -> None:
 
 
 def vis_mask_save(mask, save_path) -> None:
-    """Binary mask -> white-on-black PNG (eval_utils.py:75-79). The port
-    writes PNG only: a path with another suffix gets `.png`."""
+    """Binary mask -> white-on-black image (eval_utils.py:75-79) at
+    `save_path`: JPEG for a `.jpg` / `.jpeg` path at cv2's default quality
+    95 (data/jpeg.py), as the JAX package's cv2.imwrite writes it; PNG for
+    any other path, which gets the `.png` suffix."""
     m = np.asarray(torch.as_tensor(mask).cpu())
     out = m.astype(np.uint8)
     out[m == 1] = 255
-    _write_png(out, Path(save_path).with_suffix(".png"))
+    save_path = Path(save_path)
+    if save_path.suffix.lower() in (".jpg", ".jpeg"):
+        save_path.parent.mkdir(exist_ok=True, parents=True)
+        write_jpeg(str(save_path), out, quality=95)
+        return
+    _write_png(out, save_path.with_suffix(".png"))
 
 
 def colormap_saving(image: np.ndarray, colormap_options, save_path) -> None:
@@ -193,7 +203,7 @@ def load_coco_annotations(json_folder: str, prompts: Optional[Sequence[str]]
                     vis_mask_save(
                         img_ann[lbl]["mask"],
                         os.path.join(vis_output_path, "gt",
-                                     img_name.split(".")[0], f"{lbl}.png"))
+                                     img_name.split(".")[0], f"{lbl}.jpg"))
         gt_ann[f"{idx}"] = img_ann
     for item in data["images"]:
         idx = item["id"]

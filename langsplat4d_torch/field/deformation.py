@@ -165,11 +165,14 @@ def make_grid_spatial_cache(net: DeformNetwork, cfg: DeformConfig,
 
 def deform_forward(net: DeformNetwork, cfg: DeformConfig, aabb, xyz, scales,
                    rotations, opacity, shs, lang, times,
-                   grid_spatial=None):
+                   init_centers: bool = False, grid_spatial=None):
     """Full dynamic deformation (reference forward_dynamic,
     scene/deformation.py:103-182,232-248). xyz [N, 3], scales [N, 3]
     log-scales, rotations [N, 4], opacity [N, 1] logits, shs [N, 16, 3],
-    lang [N, L], times [N, 1].
+    lang [N, L] (L = lang_dim, or centers_num * lang_dim in discrete
+    mode), times [N, 1]. `init_centers` skips the discrete mix and runs the
+    language MLP, which must then be on (`no_dlang` False): the samples the
+    discrete stage clusters into centres.
 
     Returns (pts, scales, rotations, opacity, shs, lang_feature, coff); coff
     is None unless discrete mode is on.
@@ -209,13 +212,16 @@ def deform_forward(net: DeformNetwork, cfg: DeformConfig, aabb, xyz, scales,
         shs_out = shs * mask[..., None] + dshs
 
     coff = None
-    if cfg.use_discrete_lang_f:
+    if cfg.use_discrete_lang_f and not init_centers:
         centers = lang[:, : cfg.lang_dim * cfg.centers_num].reshape(
             lang.shape[0], cfg.centers_num, cfg.lang_dim)
         centers = safe_normalize(centers, eps=0.0)
         coff = d.discrete_coff_generator(hidden)
         lang_feature = safe_normalize(
             torch.einsum("nc,ncd->nd", coff, centers))
+    elif init_centers and cfg.no_dlang:
+        raise ValueError("init_centers needs the language MLP (no_dlang "
+                         "False)")
     elif cfg.no_dlang:
         lang_feature = lang[:, : cfg.lang_dim]
     else:

@@ -12,10 +12,9 @@ import itertools
 from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from langsplat4d_torch.ops.grid_sample import grid_sample_2d
+from langsplat4d_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
 
 COO_COMBS = tuple(itertools.combinations(range(4), 2))  # xy,xz,xt,yz,yt,zt
 SPATIAL_PLANE_IDS = (0, 1, 3)
@@ -100,12 +99,12 @@ def hexplane_query(field: HexPlaneField, aabb: torch.Tensor,
 def dense_grid_query(grid: DenseGrid, aabb: torch.Tensor,
                      pts: torch.Tensor) -> torch.Tensor:
     """Trilinear DenseGrid sample, zeros outside the AABB (reference
-    scene/grid.py:26-37). pts [n, 3] -> [n, C]."""
+    scene/grid.py:26-37). pts [n, 3] -> [n, C]. `grid_sample_3d` is
+    F.grid_sample's forward with a backward that sums in a fixed order, so
+    two identical runs with `empty_voxel` are bit-equal on the GPU."""
     xyz_max, xyz_min = aabb[0], aabb[1]
     ind = ((pts - xyz_min) / (xyz_max - xyz_min)).flip(-1) * 2 - 1
-    out = F.grid_sample(grid.grid, ind.reshape(1, 1, 1, -1, 3),
-                        mode="bilinear", align_corners=True)
-    return out.reshape(grid.grid.shape[1], -1).T
+    return grid_sample_3d(grid.grid[0], ind)
 
 
 # Plane regularizers (reference scene/regulation.py and

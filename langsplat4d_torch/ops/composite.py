@@ -126,8 +126,10 @@ ENTRY_POINTS = {
     "composite_stream_chunks_backward": {
         "composite_stream_chunks_backward": (_P,) * 5 + (_I,) * 4},
     "composite_cells": {"composite_cells": (_P,) * 4 + (_I,) * 5},
-    # the backward of the HexPlane's plane sample (ops/grid_sample.py)
+    # the backward of the HexPlane's plane sample and of the DenseGrid's
+    # trilinear sample (ops/grid_sample.py)
     "plane_grad": {"plane_grad_corners": (_P,) * 6 + (_I,) * 4,
+                   "dense_grid_corners": (_P,) * 6 + (_I,) * 5,
                    "plane_grad_sums": (_P,) * 6 + (_L,) + (_I,) * 3},
 }
 _LIBRARY_OF = {e: lib for lib, es in ENTRY_POINTS.items() for e in es}

@@ -1,0 +1,79 @@
+"""Render CLI, `python -m langsplat4d_torch.render` (port of the root
+render.py; reference render.py:181-210).
+
+Renders the train, video and test splits of a trained model in rgb or lang
+mode at a chosen stage and iteration, writes PNG renders, raw .npy maps (the
+eval's input) and mp4 videos where an mp4 writer is installed, and prints
+the FPS line. The model's `cfg_args` are read back under the command line's
+configuration, with the command line's source and model paths applied
+again. `--load_stage fine-lang-discrete` renders through each Gaussian's
+mixed language prototypes. Runs on the GPU unless `--device cpu`; without a
+GPU it raises.
+"""
+import argparse
+import sys
+
+from langsplat4d_torch.checkpoint import load_trained_model
+from langsplat4d_torch.config import load_cfg_args, parse_cli
+from langsplat4d_torch.core.device import resolve_device
+from langsplat4d_torch.data.scene import Scene
+from langsplat4d_torch.field.deformation import DeformConfig
+from langsplat4d_torch.render.driver import render_set
+from langsplat4d_torch.utils.logging import get_logger
+
+
+def main(argv=None):
+    """Returns {split: FPS} of the splits rendered."""
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--iteration", default=-1, type=int)
+    parser.add_argument("--skip_train", action="store_true")
+    parser.add_argument("--skip_test", action="store_true")
+    parser.add_argument("--skip_video", action="store_true")
+    parser.add_argument("--mode", choices=["rgb", "lang"], default="rgb")
+    parser.add_argument("--novideo", type=int, default=0)
+    parser.add_argument("--noimage", type=int, default=0)
+    parser.add_argument("--nonpy", type=int, default=0)
+    parser.add_argument("--load_stage", type=str, default="fine-lang")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device; the current CUDA device by "
+                             "default")
+    args, rest = parser.parse_known_args(argv)
+    device = resolve_device(args.device)
+
+    cfg = parse_cli(rest, description="Testing script parameters")
+    if cfg.model.model_path:
+        cfg = load_cfg_args(cfg.model.model_path, cfg)
+        # the command line's paths over the persisted cfg_args
+        cli = parse_cli(rest)
+        if cli.model.source_path:
+            cfg.model.source_path = cli.model.source_path
+        cfg.model.model_path = cli.model.model_path or cfg.model.model_path
+    logger = get_logger()
+    logger.info("Rendering %s", cfg.model.model_path)
+
+    scene = Scene(cfg.model.source_path, images=cfg.model.images,
+                  eval_split=cfg.model.eval, llffhold=cfg.model.llffhold,
+                  white_background=cfg.model.white_background,
+                  extension=cfg.model.extension,
+                  model_path=cfg.model.model_path)
+    dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
+                                    max_sh_degree=cfg.model.sh_degree)
+    model, loaded_iter = load_trained_model(
+        cfg.model.model_path, args.load_stage, args.iteration, dcfg,
+        max_sh_degree=cfg.model.sh_degree, aabb=scene.aabb, device=device)
+    kw = dict(noimage=bool(args.noimage), nonpy=bool(args.nonpy),
+              novideo=bool(args.novideo), load_stage=args.load_stage,
+              mode=args.mode)
+    fps = {}
+    for split, skip, views in (
+            ("train", args.skip_train, scene.getTrainCameras),
+            ("video", args.skip_video, scene.getVideoCameras),
+            ("test", args.skip_test, scene.getTestCameras)):
+        if not skip:
+            fps[split] = render_set(cfg, model, dcfg, scene, split,
+                                    loaded_iter, views(), **kw)
+    return fps
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

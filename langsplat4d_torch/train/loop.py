@@ -1,29 +1,33 @@
-"""Training drivers: the per-stage `scene_reconstruction` loop and the
-four-stage curriculum `training` (port of langsplat4d/train/loop.py;
-reference train.py:98-466).
+"""Training drivers: the per-stage `scene_reconstruction` loop, the
+four-stage curriculum `training` and its resume into the discrete
+`fine-lang-discrete` stage (port of langsplat4d/train/loop.py; reference
+train.py:98-466).
 
-Host control between steps: camera sampling, the batch build (on a producer
-thread, with each camera's ground truth kept on the device after its first
-upload), the loss drain and NaN watchdog every 10 iterations, densification,
-the switch to the stream layout, reports and saving. The step itself is
-`train_step_packed` (train/step.py).
+Host control between steps: the viewer bridge's poll, camera sampling, the
+batch build (on a producer thread, with each camera's ground truth kept on
+the device after its first upload), the loss drain and NaN watchdog every 10
+iterations (with `LS4D_NAN_FORENSICS`, a window of the last 12 steps'
+inputs), the rgb|gt|lang|gt_lang grid at log cadence, the render-process
+snapshots, densification, the switch to the stream layout, reports and
+saving. The step itself is `train_step_packed` (train/step.py).
 
-Not ported here: the viewer bridge (`network_gui`), the render-process
-snapshots (they need `utils/scene_vis`), the NaN forensics dump, the debug
-image dump and the discrete K-Means stage with its resume path. Intended
-removals: orbax checkpoints (torch files instead), the JAX package's stream
-tuning and audit (the port's stream has no static size) and the multi-chip
-mesh.
+Intended removals: orbax checkpoints (torch files instead), the JAX
+package's stream tuning and audit (the port's stream has no static size)
+and the multi-chip mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
+import multiprocessing
 import os
+import pickle
 import random
 import sys
-from concurrent.futures import ThreadPoolExecutor
+from collections import deque
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,19 +38,26 @@ from langsplat4d_torch.core import plyio
 from langsplat4d_torch.core import state as statelib
 from langsplat4d_torch.core.device import resolve_device
 from langsplat4d_torch.data.gt_cache import get_cache, image_fingerprint
+from langsplat4d_torch.data.png import png_bytes
 from langsplat4d_torch.data.prefetch import prefetch
 from langsplat4d_torch.data.scene import BatchLoader, FineSampler, Scene
-from langsplat4d_torch.field.deformation import DeformConfig, DeformNetwork
+from langsplat4d_torch.eval.colormaps import pca3
+from langsplat4d_torch.field.deformation import (DeformConfig, DeformNetwork,
+                                                 deform_forward)
 from langsplat4d_torch.interop import save_deformation
-from langsplat4d_torch.render.pipeline import binning_report
-from langsplat4d_torch.render.raster import RasterSettings
+from langsplat4d_torch.ops.kmeans import kmeans
+from langsplat4d_torch.render.pipeline import binning_report, render
+from langsplat4d_torch.render.raster import CameraParams, RasterSettings
 from langsplat4d_torch.train import densify as D
 from langsplat4d_torch.train.optim import AdamState, LRConfig
-from langsplat4d_torch.train.step import (StepConfig, eval_step,
-                                          pack_cam_rows, train_step_packed)
+from langsplat4d_torch.train.step import (Batch, StepConfig, eval_step,
+                                          materialize_batch, pack_cam_rows,
+                                          packed_batch, train_step_packed)
 from langsplat4d_torch.train.trainstate import (GAUSSIAN_KEYS, TrainState,
                                                 make_train_state,
                                                 one_up_sh_degree)
+from langsplat4d_torch.utils import network_gui
+from langsplat4d_torch.utils.scene_vis import render_training_image
 from langsplat4d_torch.utils.telemetry import Telemetry
 from langsplat4d_torch.utils.timer import Timer
 
@@ -308,6 +319,294 @@ def maybe_stream_switch(settings: RasterSettings, state: TrainState,
     return dataclasses.replace(settings, stream_train=True)
 
 
+class HostWriter:
+    """The loop's image outputs (the render-process snapshots, the debug
+    grid) encoded and written in WORKERS processes: on threads of the
+    training process, the numpy encoders would hold the GIL that the
+    training thread needs to launch its kernels. The training thread
+    renders and starts the copies to the host without waiting; a waiter
+    thread waits for the copies and hands the arrays to a process. At most
+    MAX_PENDING jobs wait, and a job's failure is raised on the training
+    thread at the next `submit` or at the stage's end. The processes are
+    spawned at the first job, with one OpenMP and one BLAS thread each
+    (their default pools would take the cores the training thread needs),
+    and serve the whole training process; a script that trains guards its
+    entry with `if __name__ == "__main__"`, as spawned processes import
+    the main module."""
+    WORKERS, MAX_PENDING = 4, 8
+    WORKER_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
+                  "MKL_NUM_THREADS": "1"}
+    _processes: Optional[ProcessPoolExecutor] = None
+
+    def __init__(self):
+        self._waiters = ThreadPoolExecutor(max_workers=self.WORKERS,
+                                           thread_name_prefix="image-writer")
+        self._jobs: deque = deque()
+
+    @classmethod
+    def _pool(cls) -> ProcessPoolExecutor:
+        if cls._processes is None:
+            saved = {k: os.environ.get(k) for k in cls.WORKER_ENV}
+            os.environ.update(cls.WORKER_ENV)
+            try:
+                pool = ProcessPoolExecutor(
+                    cls.WORKERS,
+                    mp_context=multiprocessing.get_context("spawn"))
+                for _ in range(cls.WORKERS):   # each starts a process now,
+                    pool.submit(int)           # in this environment
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k)
+                    else:
+                        os.environ[k] = v
+            cls._processes = pool
+        return cls._processes
+
+    def submit(self, tensors: Sequence[torch.Tensor], write) -> None:
+        """`write(*arrays)` in a worker process, with copies of `tensors`
+        (their values now) as host numpy arrays; `write` must pickle (a
+        module-level function or a functools.partial of one)."""
+        host = [t.detach().to("cpu", non_blocking=True, copy=True)
+                for t in tensors]
+        copied = None
+        if any(t.is_cuda for t in tensors):
+            copied = torch.cuda.Event()
+            copied.record()
+        while self._jobs and (self._jobs[0].done()
+                              or len(self._jobs) >= self.MAX_PENDING):
+            self._jobs.popleft().result()
+        pool = self._pool()
+
+        def job():
+            if copied is not None:
+                copied.synchronize()
+            return pool.submit(write, *[h.numpy() for h in host]).result()
+        self._jobs.append(self._waiters.submit(job))
+
+    def __enter__(self) -> "HostWriter":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        try:
+            while self._jobs and exc_type is None:
+                self._jobs.popleft().result()
+        finally:
+            self._waiters.shutdown(wait=True, cancel_futures=True)
+
+
+def _image2save(arr: np.ndarray, mode: str) -> np.ndarray:
+    """[C, H, W] float -> [H, W, 3] uint8 (reference image2save,
+    train.py:74-96): a language map is taken to (x + 1) / 2 and, when wider
+    than 3 channels, to its top three principal components scaled to
+    [0, 1] (`eval/colormaps.pca3`, scikit-learn's PCA)."""
+    if mode == "lang":
+        arr = (arr + 1.0) / 2.0
+        if arr.shape[0] > 3:
+            c, h, w = arr.shape
+            flat = pca3(torch.from_numpy(np.ascontiguousarray(
+                arr.reshape(c, -1).T))).numpy()
+            fmap = (flat - flat.min()) / (flat.max() - flat.min() + 1e-12)
+            return (fmap.reshape(h, w, 3) * 255).astype(np.uint8)
+    img = np.clip(arr[:3].transpose(1, 2, 0), 0, 1)
+    return (img * 255).astype(np.uint8)
+
+
+def _debug_image_dump(model_path: str, stage: str, iteration: int,
+                      render_img, gt_img, lang_img, gt_lang_img) -> str:
+    """The rgb|gt|lang|gt_lang grid (reference train.py:314-327) as
+    training_output_img/output_{stage}_{iteration}.png; returns its
+    path."""
+    images = [_image2save(np.asarray(render_img), "rgb"),
+              _image2save(np.asarray(gt_img), "rgb"),
+              _image2save(np.asarray(lang_img), "lang"),
+              _image2save(np.asarray(gt_lang_img), "lang")]
+    h = max(im.shape[0] for im in images)
+    grid = np.zeros((h, sum(im.shape[1] for im in images), 3), np.uint8)
+    x = 0
+    for im in images:
+        grid[:im.shape[0], x:x + im.shape[1]] = im
+        x += im.shape[1]
+    save_dir = os.path.join(model_path, "training_output_img")
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"output_{stage}_{iteration}.png")
+    with open(path, "wb") as f:
+        f.write(png_bytes(grid))
+    return path
+
+
+def _payload_batch(batch: PackedPayload, device) -> Batch:
+    """The PackedPayload as a full Batch (its ground truth decoded on the
+    device), for the debug grid and the forensics dump."""
+    rows = torch.as_tensor(np.asarray(batch.packed, np.float32)).to(device)
+    return materialize_batch(packed_batch(rows, batch.imgs, batch.segs,
+                                          batch.tables))
+
+
+def _debug_grid(cfg: Config, state: TrainState, step_cfg: StepConfig,
+                stage: str, iteration: int, cams, batch: PackedPayload,
+                bg, writer: HostWriter) -> None:
+    """One extra forward of the iteration's first camera at log cadence
+    (the step keeps its images on the device) and the grid of it, its
+    ground truth, its language map and the language ground truth (zeros
+    where the stage has none), written by `writer`."""
+    out = eval_step(step_cfg, state, cams[0].camera_params(state.device),
+                    cams[0].time, bg, state.active_sh_degree)
+    full = _payload_batch(batch, state.device)
+    gt_lang = (full.gt_lang[0] if full.gt_lang is not None
+               else torch.zeros((cfg.runtime.language_feature_hiddendim,)
+                                + tuple(full.gt_images.shape[2:]),
+                                device=state.device))
+    lang = out["language_feature_image"]
+    if lang is None or lang.shape[0] == 0:
+        lang = torch.zeros_like(gt_lang)
+    writer.submit([out["render"], full.gt_images[0], lang, gt_lang],
+                  functools.partial(_debug_image_dump, cfg.model.model_path,
+                                    stage, iteration))
+
+
+def _gui_poll(cfg: Config, scene: Scene, state: TrainState,
+              step_cfg: StepConfig, stage: str, iteration: int,
+              final_iter: int, bg, gui_ctx: dict) -> None:
+    """The viewer bridge, once a training iteration (reference
+    train.py:166-191): accept a pending viewer, render each camera it asks
+    for at the cycled video-camera time through `render/pipeline.render`,
+    and send the frame's RGB bytes back. Without a listener, nothing; with
+    no viewer, one non-blocking accept. A viewer that hangs up or sends a
+    bad message is dropped, and training goes on."""
+    if network_gui.listener is None:
+        return
+    if network_gui.conn is None:
+        network_gui.try_connect()
+    while network_gui.conn is not None:
+        try:
+            (custom_cam, do_training, _shs, _cov, keep_alive,
+             scaling_mod) = network_gui.receive()
+        except (OSError, ValueError, KeyError) as e:
+            logger.warning("viewer dropped: %s", e)
+            network_gui.drop()
+            return
+        frame = None
+        if custom_cam is not None:
+            if "video_cams" not in gui_ctx:
+                gui_ctx["video_cams"] = list(scene.getVideoCameras())
+            video_cams = gui_ctx["video_cams"]
+            gui_ctx["count"] = count = gui_ctx.get("count", 0) + 1
+            t = 0.0
+            if video_cams:
+                vi = count % len(video_cams)
+                if (count // len(video_cams)) % 2 != 0:
+                    vi = len(video_cams) - vi - 1
+                t = float(video_cams[vi].time)
+            dev = state.device
+
+            def f32(a):
+                return torch.as_tensor(np.asarray(a, np.float32),
+                                       device=dev)
+            cam = CameraParams(
+                viewmatrix=f32(custom_cam.world_view_transform),
+                projmatrix=f32(custom_cam.full_proj_transform),
+                campos=f32(custom_cam.camera_center),
+                tanfovx=f32(np.tan(custom_cam.fovx * 0.5)),
+                tanfovy=f32(np.tan(custom_cam.fovy * 0.5)))
+            settings = dataclasses.replace(
+                step_cfg.settings, image_height=custom_cam.height,
+                image_width=custom_cam.width,
+                sh_degree=int(state.active_sh_degree))
+            with torch.no_grad():
+                out = render(settings, step_cfg.dcfg, stage, cam, t,
+                             state.gaussians(), state.deform, state.aabb, bg,
+                             scaling_modifier=float(scaling_mod or 1.0),
+                             nonormalized=step_cfg.nonormalized)
+            img = torch.clamp(out["render"], 0.0, 1.0).cpu().numpy()
+            frame = memoryview(np.ascontiguousarray(
+                (img * 255).astype(np.uint8).transpose(1, 2, 0)))
+        try:
+            network_gui.send(frame, cfg.model.source_path or "")
+        except OSError as e:
+            logger.warning("viewer dropped: %s", e)
+            network_gui.drop()
+            return
+        if do_training and (iteration < final_iter or not keep_alive):
+            break
+
+
+def _snapshot_state(state: TrainState) -> dict:
+    """A copy of what a step reads and writes, on the device (the step
+    updates the state in place, so a reference would not keep it)."""
+    return dict(
+        params={k: v.detach().clone() for k, v in state.params.items()},
+        deform={k: v.detach().clone()
+                for k, v in state.deform.state_dict().items()},
+        opt_m={k: v.clone() for k, v in state.opt.m.items()},
+        opt_v={k: v.clone() for k, v in state.opt.v.items()},
+        opt_step=state.opt.step, num_active=state.num_active,
+        active_sh_degree=state.active_sh_degree,
+        **{k: getattr(state, k).clone() for k in _BUFFERS})
+
+
+def _to_numpy(tree):
+    """Tensors as numpy arrays, named tuples as dicts, in nested dicts,
+    lists and tuples."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree
+
+
+def _params_finite(state: TrainState) -> bool:
+    return bool(torch.stack([torch.isfinite(v).all() for v in
+                             state.leaves().values()]).all())
+
+
+def _nan_forensics_dump(cfg: Config, stage: str, iteration: int, window,
+                        bg, state: TrainState, step_cfg: StepConfig) -> str:
+    """The window of (iteration, state before the step, batch) as numpy
+    arrays in one pickle, nan_forensics_{stage}_{iteration}.pkl in the
+    model path; returns its path."""
+    dump = os.path.join(cfg.model.model_path or ".",
+                        f"nan_forensics_{stage}_{iteration}.pkl")
+    with open(dump, "wb") as fh:
+        pickle.dump(dict(
+            stage=stage,
+            window=[(it, _to_numpy(snap), _to_numpy(b))
+                    for it, snap, b in window],
+            bg=_to_numpy(bg), active_sh_degree=int(state.active_sh_degree),
+            step_cfg=step_cfg), fh)
+    return dump
+
+
+def render_process_snapshot(cfg: Config, scene: Scene, state: TrainState,
+                            step_cfg: StepConfig, stage: str, iteration: int,
+                            bg, elapsed: float, writer: HostWriter) -> None:
+    """The GT | render | depth triptych of one test and one train camera
+    (train.py:376-382 render_process) in model_path/render_process, as
+    `{stage}{split}_{iteration}.jpg`, written by `writer`."""
+    out_dir = os.path.join(cfg.model.model_path, "render_process")
+    for split_name, cams in (("test", scene.getTestCameras()),
+                             ("train", scene.getTrainCameras())):
+        if len(cams) == 0:
+            continue
+        cam = cams[iteration % len(cams)]
+        out = eval_step(step_cfg, state, cam.camera_params(state.device),
+                        cam.time, bg, state.active_sh_degree)
+        writer.submit([out["render"], out["depth"]], functools.partial(
+            render_training_image, out_dir, stage + split_name, iteration,
+            elapsed, cam.image[:3], point_count=state.num_active))
+
+
+def render_process_due(iteration: int) -> bool:
+    """The snapshots' cadence (train.py:376-382)."""
+    return ((iteration < 1000 and iteration % 10 == 9)
+            or (iteration < 3000 and iteration % 50 == 49)
+            or (iteration < 60000 and iteration % 100 == 99))
+
+
 @contextlib.contextmanager
 def deterministic_on(device: torch.device):
     """PyTorch's deterministic algorithms for the duration, on a GPU, in
@@ -372,9 +671,10 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                                     and stage.startswith("fine")) else 0.0),
         l1_time_planes=cfg.hidden.l1_time_planes,
         plane_tv_weight=cfg.hidden.plane_tv_weight, batch_size=batch_size)
-    if cfg.model.render_process:
-        logger.warning("render_process snapshots are not ported; skipped")
     split = "train"
+    gui_ctx: dict = {}
+    forensics = (deque(maxlen=12) if os.getenv("LS4D_NAN_FORENSICS")
+                 else None)
 
     def batch_source():
         """Camera sampling and the batch build, run ahead of the step on the
@@ -432,15 +732,30 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
         pending.clear()
         return float(vals[-1])
 
-    with deterministic_on(device):
+    with deterministic_on(device), HostWriter() as writer:
         for iteration in range(1, train_iter + 1):
+            _gui_poll(cfg, scene, state, step_cfg, stage, iteration,
+                      train_iter, bg, gui_ctx)
             if iteration % 1000 == 0:
                 one_up_sh_degree(state, cfg.model.sh_degree)
             cams, batch = next(batch_iter)
+            if forensics is not None:
+                # debug mode: the last 12 steps' inputs, copied (the step
+                # updates the state in place), and a finite check of the
+                # parameters at the loss drain; a trip dumps the window
+                forensics.append((iteration, _snapshot_state(state),
+                                  _payload_batch(batch, device)))
             state, metrics, vs_grad, visibility, radii_max = train_step_packed(
                 step_cfg, state, batch.packed, batch.imgs, batch.segs,
                 batch.tables, bg, state.active_sh_degree)
             pending.append((iteration, metrics["loss"]))
+            if (forensics is not None and iteration % 10 == 0
+                    and not _params_finite(state)):
+                dump = _nan_forensics_dump(cfg, stage, iteration, forensics,
+                                           bg, state, step_cfg)
+                logger.error("NaN window dumped to %s", dump)
+                _watchdog_restart(cfg, f"params non-finite at iteration "
+                                       f"{iteration} (forensics dumped)")
 
             if iteration % 10 == 0 or iteration == train_iter:
                 loss = drain_losses()
@@ -451,6 +766,9 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
             if iteration % 100 == 0:
                 logger.info("[%s] iter %d/%d loss %.6f points %d", stage,
                             iteration, train_iter, ema_loss, state.num_active)
+                if cfg.model.model_path:
+                    _debug_grid(cfg, state, step_cfg, stage, iteration, cams,
+                                batch, bg, writer)
 
             timer.pause()
             if iteration in ex.test_iterations:
@@ -459,6 +777,10 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
             if iteration in ex.save_iterations and "coarse-base" not in stage:
                 logger.info("[ITER %d] Saving Gaussians", iteration)
                 save_scene(cfg, state, iteration, stage, cfg.model.model_path)
+            if cfg.model.render_process and render_process_due(iteration):
+                render_process_snapshot(cfg, scene, state, step_cfg, stage,
+                                        iteration, bg,
+                                        timer.get_elapsed_time(), writer)
             timer.start()
 
             # densification (base stages only, train.py:388-414)
@@ -618,8 +940,14 @@ def training(cfg: Config, device=None) -> TrainState:
     """The curriculum (reference training(), train.py:428-466): the scene
     from cfg.model.source_path, the initial state, then coarse-base,
     coarse-lang, fine-base and fine-lang, each for its iteration budget.
-    `device=None` is the current CUDA device (an error where there is
-    none)."""
+    With `extras.resume_from_final_stage == 1` (phase B of
+    scripts/train_eval.sh, train.py:436-441): the `start_checkpoint` state,
+    its language features expanded into discrete centres
+    (`prepare_discrete_stage`), and `fine-lang-discrete` for
+    fine_lang_iterations + 10000 iterations; the DeformConfig comes from the
+    config (`use_discrete_lang_f` from the environment), not from the
+    checkpoint. `device=None` is the current CUDA device (an error where
+    there is none)."""
     device = resolve_device(device)
     model_path = cfg.model.model_path
     if not model_path:
@@ -627,9 +955,6 @@ def training(cfg: Config, device=None) -> TrainState:
         cfg.model.model_path = model_path
     os.makedirs(model_path, exist_ok=True)
     save_cfg_args(cfg, model_path)
-    if cfg.extras.resume_from_final_stage == 1:
-        raise NotImplementedError("the discrete fine-lang stage and its "
-                                  "resume are not ported yet")
     scene = Scene(cfg.model.source_path, images=cfg.model.images,
                   eval_split=cfg.model.eval, llffhold=cfg.model.llffhold,
                   white_background=cfg.model.white_background,
@@ -639,6 +964,15 @@ def training(cfg: Config, device=None) -> TrainState:
     timer = Timer()
     timer.start()
     opt, ex = cfg.optim, cfg.extras
+    if ex.resume_from_final_stage == 1:
+        state, _ = load_checkpoint(ex.start_checkpoint, device=device)
+        dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
+                                        max_sh_degree=cfg.model.sh_degree)
+        state = prepare_discrete_stage(cfg, state, dcfg,
+                                       init_from_stage=ex.init_from_stage)
+        return scene_reconstruction(cfg, scene, state, dcfg,
+                                    "fine-lang-discrete", ex.joint_fine,
+                                    opt.fine_lang_iterations + 10000, timer)
     state, dcfg = init_state_from_scene(cfg, scene, seed=ex.seed,
                                         device=device)
     stages = [("coarse-base", False, opt.coarse_base_iterations),
@@ -649,4 +983,72 @@ def training(cfg: Config, device=None) -> TrainState:
         if iters > 0:
             state = scene_reconstruction(cfg, scene, state, dcfg, stage,
                                          joint, iters, timer)
+    return state
+
+
+@torch.no_grad()
+def deformed_lang_samples(state: TrainState, dcfg: DeformConfig,
+                          lang: torch.Tensor,
+                          sample_num: int = 100) -> torch.Tensor:
+    """[cap, sample_num, L]: each Gaussian's deformed language feature at
+    `sample_num` times, the times of sample s drawn per Gaussian from
+    np.random.default_rng(0) as the JAX package draws them, through
+    `deform_forward(..., init_centers=True)` with the language MLP on."""
+    sample_cfg = dataclasses.replace(dcfg, no_dlang=False,
+                                     use_discrete_lang_f=False)
+    gs = state.gaussians()
+    cap, dev = state.capacity, state.device
+    rng = np.random.default_rng(0)
+    feats = gs.get_features()
+    samples = []
+    for _ in range(sample_num):
+        t = torch.from_numpy(rng.random((cap, 1)).astype(np.float32)).to(dev)
+        out = deform_forward(state.deform, sample_cfg, state.aabb, gs.xyz,
+                             gs.scaling, gs.rotation, gs.opacity, feats,
+                             lang, t, init_centers=True)
+        samples.append(out[5])
+    return torch.stack(samples, dim=1)
+
+
+def prepare_discrete_stage(cfg: Config, state: TrainState,
+                           dcfg: DeformConfig,
+                           init_from_stage: str = "fine-base",
+                           sample_num: int = 100) -> TrainState:
+    """Per-Gaussian discrete language centres (the reference's
+    generate_multi_feature_centers, gaussian_model.py:804-845; JAX
+    langsplat4d/train/loop.py:1123-1177), in place: `language_feature`
+    becomes [cap, centers_num * L] in the reference's layout ([cap,
+    centers, L] permuted to [cap, L, centers] and flattened,
+    gaussian_model.py:230) with fresh Adam moments. From `fine-base`: each
+    centre is the normalised feature plus N(0, 0.05) noise from
+    np.random.default_rng(0), drawn on the host as the JAX package draws
+    it. Otherwise: `sample_num` deformed samples of each live Gaussian
+    (`deformed_lang_samples`) clustered into centres by the batched
+    K-Means of ops/kmeans.py on the device, seeded from the uniforms
+    scikit-learn's KMeans(random_state=0, n_init=10) draws for every
+    Gaussian in the JAX package. Features already expanded are left as
+    they are."""
+    lang_dim = cfg.runtime.language_feature_hiddendim
+    centers_num = cfg.runtime.centers_num
+    lf = state.params["language_feature"]
+    cap, n, dev = lf.shape[0], state.num_active, lf.device
+    if lf.shape[1] != lang_dim:
+        return state
+    lf_np = lf.detach().cpu().numpy()
+    lf_n = lf_np / (np.linalg.norm(lf_np, axis=-1, keepdims=True) + 1e-9)
+    if init_from_stage == "fine-base":
+        rng = np.random.default_rng(0)
+        multi = torch.from_numpy(np.stack(
+            [rng.normal(loc=lf_n, scale=0.05).astype(np.float32)
+             for _ in range(centers_num)], axis=1)).to(dev)
+    else:
+        res = deformed_lang_samples(state, dcfg, torch.from_numpy(lf_n).to(
+            dev), sample_num)
+        centers, _ = kmeans(res[:n], centers_num)
+        multi = torch.zeros((cap, centers_num, lang_dim), device=dev)
+        multi[:n] = centers
+    flat = multi.permute(0, 2, 1).reshape(cap, -1).contiguous()
+    state.params["language_feature"] = flat
+    state.opt.m["language_feature"] = torch.zeros_like(flat)
+    state.opt.v["language_feature"] = torch.zeros_like(flat)
     return state

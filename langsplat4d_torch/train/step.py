@@ -231,7 +231,14 @@ def train_step_packed(cfg: StepConfig, state: TrainState, packed,
     here to the batch's largest S)."""
     host = torch.as_tensor(np.asarray(packed, np.float32))
     iteration = int(host[0, 38])
-    rows = _upload_rows(host, state.device)
+    batch = packed_batch(_upload_rows(host, state.device), imgs, segs, tables)
+    return train_step(cfg, state, batch, bg, iteration, active_sh_degree)
+
+
+def packed_batch(rows: torch.Tensor, imgs, segs, tables) -> Batch:
+    """The compact-format Batch of packed camera rows [B, 39] on the
+    device and per-camera ground-truth tensors (the tables padded to the
+    batch's largest S)."""
     b = rows.shape[0]
     cams = CameraParams(
         viewmatrix=rows[:, :16].reshape(b, 4, 4),
@@ -241,12 +248,11 @@ def train_step_packed(cfg: StepConfig, state: TrainState, packed,
         s_max = max(t.shape[0] for t in tables)
         tables = [torch.nn.functional.pad(t, (0, 0, 0, s_max - t.shape[0]))
                   for t in tables]
-    batch = Batch(
+    return Batch(
         cams=cams, times=rows[:, 37], gt_images=torch.stack(list(imgs)),
         gt_lang=None, lang_mask=None,
         gt_seg=torch.stack(list(segs)) if segs else None,
         gt_tables=torch.stack(tables) if tables else None)
-    return train_step(cfg, state, batch, bg, iteration, active_sh_degree)
 
 
 def train_step(cfg: StepConfig, state: TrainState, batch: Batch,

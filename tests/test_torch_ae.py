@@ -277,15 +277,30 @@ def test_vae_cli_exports_unit_latents(tmp_path, monkeypatch):
 
 
 def test_a_batch_of_one_raises_in_training():
-    """nn.BatchNorm1d refuses one row in training mode, as the reference's
-    torch AE does; the JAX package's `_batchnorm` normalises it to 0
-    (ROADMAP queue 3). In eval mode one row runs."""
+    """A batch of one row in training mode (the name is from when it
+    raised, as nn.BatchNorm1d does): the port's BatchNorm normalises it as
+    the JAX package's `_batchnorm` does (langsplat4d/ae/model.py:45-58), to
+    0 before the affine, with the running variance taking var * n /
+    max(n - 1, 1) = 0. The output and every running statistic against
+    `JM.forward(..., train=True)`: 1e-6 (one fp32 row through the same
+    ops; the decoder's normalisation rounds in another order)."""
     p = _jax_ae([8, 3], [8, 16], 16)
     model = ae_from_numpy(_np(p), device="cpu").train()
-    x = torch.ones(1, 16)
-    with pytest.raises(ValueError, match="more than 1 value"):
-        model(x)
-    out_j, _ = JM.forward(p, jnp.ones((1, 16)), train=True)
-    assert np.isfinite(np.asarray(out_j)).all()
+    x = np.random.default_rng(3).normal(size=(1, 16)).astype(np.float32)
+    out_t = model(torch.from_numpy(x))
+    out_j, new_p = JM.forward(p, jnp.asarray(x), train=True)
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               rtol=0, atol=1e-6)
+    bns = [m for m in model.encoder if isinstance(m, torch.nn.BatchNorm1d)]
+    jbns = [layer["bn"] for layer in new_p["encoder"] if "bn" in layer]
+    assert len(bns) == len(jbns) == 1
+    for bn, jbn in zip(bns, jbns):
+        np.testing.assert_allclose(bn.running_mean.numpy(),
+                                   np.asarray(jbn["mean"]), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(bn.running_var.numpy(),
+                                   np.asarray(jbn["var"]), rtol=0, atol=1e-6)
+        assert int(bn.num_batches_tracked) == 1
+    assert set(model.state_dict()) == set(
+        ae_from_numpy(_np(p), device="cpu").state_dict())
     with torch.no_grad():
-        assert torch.isfinite(model.eval()(x)).all()
+        assert torch.isfinite(model.eval()(torch.from_numpy(x))).all()

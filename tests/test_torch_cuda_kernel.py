@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from chip_smoke import (cell_cases, compare_case, compare_cell_case,
-                        compare_list_case, compare_plane_grad_case,
+                        compare_dense_grid_case, compare_list_case,
+                        compare_plane_grad_case,
                         compare_segment_case, kernel_cases, list_cases,
                         plane_grad_cases, segment_cases)
 
@@ -173,3 +174,15 @@ def test_plane_grad_kernel_matches_plain_and_repeats(cuda_device, case):
     _, _, excess, ratio, same = compare_plane_grad_case(case, cuda_device,
                                                         seed=1)
     assert excess <= 0.0 and ratio <= 1.0 and same
+
+
+@pytest.mark.parametrize("n,padded", [(2_000, 0.2), (434_176, 0.78)],
+                         ids=["small", "loop"])
+def test_dense_grid_kernel_matches_plain_and_repeats(cuda_device, n, padded):
+    """The DenseGrid's backward (dense_grid_query under `empty_voxel`: the
+    segmented sums of csrc/plane_grad.cu over eight corners) against
+    dense_grid_grad_plain within the gradient bound of each gradient's
+    largest entry, and two calls bit-equal (chip_smoke.py phase 21)."""
+    _, _, excess, same = compare_dense_grid_case(cuda_device, seed=1, n=n,
+                                                 padded=padded)
+    assert excess <= 0.0 and same

@@ -199,9 +199,103 @@ def test_plane_grad_source_is_plain_cuda():
                                                      "<stdint.h>"]
     assert not re.search(r"\batomic\w*\s*\(", src)       # no atomics
     assert not re.search(r"cublas|cudnn|cutlass|torch/", src, re.I)
-    for entry in ("ls4d_plane_grad_corners", "ls4d_plane_grad_sums",
-                  "ls4d_cuda_error_string"):
+    for entry in ("ls4d_plane_grad_corners", "ls4d_dense_grid_corners",
+                  "ls4d_plane_grad_sums", "ls4d_cuda_error_string"):
         assert f'extern "C"' in src and f" {entry}(" in src
     assert "plane_grad" not in composite.KERNELS
     assert sorted(composite.ENTRY_POINTS["plane_grad"]) == [
-        "plane_grad_corners", "plane_grad_sums"]
+        "dense_grid_corners", "plane_grad_corners", "plane_grad_sums"]
+
+
+def _dense_case(kind, seed=0, C=2, world=(6, 5, 7), n=400):
+    """A DenseGrid [1, C, *world], its AABB, points and an output gradient:
+    `inside` the AABB; `beyond` it (corners off the grid read 0); `padded`,
+    a third of the points at one position with a zero gradient, as a
+    GaussianState's padding."""
+    rng = np.random.default_rng(seed)
+    grid = rng.normal(size=(C, *world)).astype(np.float32)
+    aabb = np.asarray([[1.5] * 3, [-1.5] * 3], np.float32)
+    lim = 1.49 if kind == "inside" else 1.9
+    pts = rng.uniform(-lim, lim, size=(n, 3)).astype(np.float32)
+    gout = rng.normal(size=(n, C)).astype(np.float32)
+    if kind == "padded":
+        pts[::3] = 0.37
+        gout[::3] = 0.0
+    return grid, aabb, pts, gout
+
+
+@pytest.mark.parametrize("kind", ["inside", "beyond", "padded"])
+def test_dense_grid_query_backward_is_the_ports(kind):
+    """field/hexplane.dense_grid_query: the forward bit-equal to
+    F.grid_sample in 3-D (align_corners, zeros outside); the backward is
+    the port's own (`ops/grid_sample.dense_grid_grad`, no float atomics on
+    the card), within 1e-5 of jax.grad through the JAX package's corner
+    gathers (langsplat4d/field/hexplane.py:72-106) for the grid, and
+    within 1e-5 of the largest entry for the points (`assert_coords_close`:
+    the grid's slope times (N - 1) / 2, around 10 here)."""
+    from langsplat4d.field import hexplane as JH
+    from langsplat4d_torch.field import hexplane as TH
+    grid, aabb, pts, gout = _dense_case(kind)
+
+    def jf(grid, pts):
+        return (JH.dense_grid_query(grid, jnp.asarray(aabb), pts)
+                * gout).sum()
+    jg, jp = jax.grad(jf, (0, 1))(jnp.asarray(grid), jnp.asarray(pts))
+    dense = TH.DenseGrid(grid.shape[0], grid.shape[1:])
+    with torch.no_grad():
+        dense.grid.copy_(torch.from_numpy(grid)[None])
+    p = torch.tensor(pts, requires_grad=True)
+    box = torch.from_numpy(aabb)
+    out = TH.dense_grid_query(dense, box, p)
+    ind = ((p - box[1]) / (box[0] - box[1])).flip(-1) * 2 - 1
+    ref = F.grid_sample(dense.grid, ind.reshape(1, 1, 1, -1, 3),
+                        mode="bilinear", align_corners=True)
+    assert torch.equal(out, ref.reshape(grid.shape[0], -1).T)
+    assert type(out.grad_fn).__name__ == "_DenseGridSampleBackward"
+    (out * torch.from_numpy(gout)).sum().backward()
+    np.testing.assert_allclose(dense.grid.grad[0].numpy(), np.asarray(jg),
+                               rtol=0, atol=TOL)
+    assert_coords_close(p.grad.numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("chunk", [8, 256])
+def test_dense_grid_scheme_sums_as_the_plain_version(chunk):
+    """The card's sum of the grid gradient, step by step on the CPU: the
+    eight corner keys (off the grid and zero-gradient points keyed past
+    it, so the padding makes no run), then the segmented sums of
+    csrc/plane_grad.cu (`segment_sums_scheme_plain`), against
+    dense_grid_grad_plain's index_add_; points crowded into a few cells
+    make runs across many chunks."""
+    from langsplat4d_torch.ops import grid_sample as G
+    grid, aabb, pts, gout = _dense_case("padded", seed=4, n=600)
+    pts[1::3] = np.random.default_rng(4).uniform(0.1, 0.12, (200, 3))
+    box = torch.from_numpy(aabb)
+    ind = ((torch.from_numpy(pts) - box[1]) / (box[0] - box[1])).flip(-1) \
+        * 2 - 1
+    g = torch.from_numpy(gout)
+    keys, wts = G.dense_grid_keys(grid.shape, ind, g)
+    C, D, H, W = grid.shape
+    assert keys.dtype == torch.int32 and keys.numel() == 8 * len(pts)
+    assert int((keys.reshape(8, -1)[:, ::3] >= D * H * W).sum()) == 8 * 200
+    got = G.segment_sums_scheme_plain(keys.long(), wts, g, D * H * W, chunk)
+    want = G.dense_grid_grad_plain(torch.from_numpy(grid), ind, g)[0]
+    np.testing.assert_allclose(got.T.reshape(C, D, H, W).numpy(),
+                               want.numpy(), rtol=0, atol=TOL)
+
+
+def test_dense_grid_grad_wrapper_has_no_fallback():
+    """The plain version only for CPU tensors; other devices raise; the
+    launch counter goes up where the kernel launches and nowhere else."""
+    import ast
+    import inspect
+    import textwrap
+    from langsplat4d_torch.ops import grid_sample as G
+    tree = ast.parse(textwrap.dedent(inspect.getsource(G.dense_grid_grad)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    m = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        G.dense_grid_grad(torch.zeros((1, 2, 3, 4), **m),
+                          torch.zeros((5, 3), **m), torch.zeros((5, 1), **m))
+    bumps = [ast.unparse(n) for n in ast.walk(tree)
+             if isinstance(n, ast.AugAssign)]
+    assert bumps == ["dense_grid_grad.launches += 1"]

@@ -21,6 +21,7 @@ SLICE = (
     "langsplat4d_torch.core.state",
     "langsplat4d_torch.data.cameras",
     "langsplat4d_torch.data.png",
+    "langsplat4d_torch.data.jpeg",
     "langsplat4d_torch.data.readers",
     "langsplat4d_torch.data.scene",
     "langsplat4d_torch.data.prefetch",
@@ -29,6 +30,7 @@ SLICE = (
     "langsplat4d_torch.ops.point_utils",
     "langsplat4d_torch.ops.grid_sample",
     "langsplat4d_torch.ops.composite",
+    "langsplat4d_torch.ops.kmeans",
     "langsplat4d_torch.field.nets",
     "langsplat4d_torch.field.hexplane",
     "langsplat4d_torch.field.deformation",
@@ -43,12 +45,18 @@ SLICE = (
     "langsplat4d_torch.utils.synth",
     "langsplat4d_torch.utils.telemetry",
     "langsplat4d_torch.utils.timer",
+    "langsplat4d_torch.utils.logging",
+    "langsplat4d_torch.utils.profiling",
+    "langsplat4d_torch.utils.network_gui",
+    "langsplat4d_torch.utils.scene_vis",
     "langsplat4d_torch.train.losses",
     "langsplat4d_torch.train.optim",
     "langsplat4d_torch.train.trainstate",
     "langsplat4d_torch.train.step",
     "langsplat4d_torch.train.densify",
     "langsplat4d_torch.train.loop",
+    "langsplat4d_torch.train.__main__",
+    "langsplat4d_torch.render.__main__",
     "langsplat4d_torch.ae",
     "langsplat4d_torch.ae.model",
     "langsplat4d_torch.ae.data",
@@ -188,6 +196,14 @@ def _call_without_device(entry, tmp_path):
     if entry == "ae_test":
         from langsplat4d_torch.ae.test import main
         return main(["--dataset_path", str(tmp_path), "--model_name", "m"])
+    if entry == "train_cli":
+        from langsplat4d_torch.train.__main__ import main
+        return main(["--source_path", str(tmp_path), "--model_path",
+                     str(tmp_path / "m"), "--port", "-1"])
+    if entry == "render_cli":
+        from langsplat4d_torch.render.__main__ import main
+        return main(["--source_path", str(tmp_path), "--model_path",
+                     str(tmp_path / "m")])
     if entry == "eval":
         from langsplat4d_torch.eval.__main__ import main
         return main(["--exp_name", "e", "--iterations", "1",
@@ -201,7 +217,8 @@ def _call_without_device(entry, tmp_path):
     "load_trained_model", "gaussians_from_numpy", "load_deformation",
     "from_arrays", "realistic_gaussians", "create_from_pcd",
     "mean_knn_dist2", "training", "load_checkpoint", "ae_load_ckpt",
-    "ae_from_numpy", "ae_train", "ae_test", "eval"])
+    "ae_from_numpy", "ae_train", "ae_test", "eval", "train_cli",
+    "render_cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         entry, tmp_path, monkeypatch):
     """Without a device argument the entry points go to the GPU; where there
