@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare NAME=TREE [--compare ...] [--rounds 3]
+    python3 chip_smoke.py --only 25,26,27
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 With --compare it checks nothing and only times the six kernels of this
 checkout in turns with those of other builds (see `compare_builds`).
 Phases, each failing the run on error:
   1. build the six compositor kernels and the plane-gradient kernel from
-     csrc/ with nvcc, one nvcc per source, all started together;
+     csrc/ with nvcc, one nvcc per source, all started together, and the
+     host image codec (csrc/imgcodec.cpp) with c++ beside them;
   2. compare the stream kernel with its plain PyTorch version on synthetic
      segments (16- and 32-px tiles, hard cutoffs on and off, empty and long
      segments, image edges that cut through a 16x16 quadrant, and rows that
@@ -133,7 +135,8 @@ Phases, each failing the run on error:
      seeded 4096-d VAE decoder on a seeded [536, 960, 6] map);
  24. scripts/train_eval.sh's flow through the port's CLIs on that scene:
      `python -m langsplat4d_torch.train` (phase A: the preset at full
-     width, phase 20's depth cuts, fine-lang 0, a checkpoint at fine-base's
+     width, half of phase 20's stage budgets (CLI_STAGE_ITERS) with its
+     densification cuts, fine-lang 0, a checkpoint at fine-base's
      last iteration, the render-process snapshots, the debug grid and the
      viewer bridge answering one request; phase B: the discrete
      fine-lang-discrete stage resumed from that checkpoint, cut to 200
@@ -142,14 +145,39 @@ Phases, each failing the run on error:
      `.eval` on those renders; then prepare_discrete_stage in both modes on
      phase 20's saved state, its K-Means held against the plain version;
      last, phase A three more times, without, without and with the
-     snapshots, for its it/s with and without them in turns.
+     snapshots, for its it/s with and without them in turns;
+ 25. the port's image codec (csrc/imgcodec.cpp, host C++) against its
+     numpy twins on inputs the phase writes itself: PNGs in every row
+     filter, a per-row mix and libpng's adaptive choice, in grey, grey +
+     alpha, RGB and RGBA; JPEGs of the port's encoder at quality 75 and
+     95, with and without restart intervals; PIL's resample in its four
+     filters, down and up, RGB and RGBA: byte for byte; then the codec's
+     and the twins' ms per 1352x1014 frame (a PNG of Paeth rows, one of
+     adaptive rows, a JPEG, a lanczos resample from 2704x2028);
+ 26. Neu3D at full width through the CLIs: a dynerf scene of 6 cameras x
+     30 frames at the reader's 1352x1014 (adaptive-filter PNGs rendered
+     from phase 3's 200k Gaussians with Neu3D's deformation, 100k initial
+     points, 3-d language ground truth under the names the loader asks
+     for), `python -m langsplat4d_torch.train` with configs/neu3d/default.py
+     at full width (batch 4) and phase 20's depth cuts, `.render --mode
+     lang` over the test split (frame 0 held against the plain version on
+     its rows), `.eval --dataset_type neu3d` on test_lang; it/s per stage,
+     decode ms a frame, the batch build on misses against hits, and
+     fine-base in turns at the default 4096 MB GT cache and at 256 MB;
+ 27. the other formats: Blender, COLMAP (JPEG frames) and MultipleView
+     scenes written tiny and trained a few iterations through
+     `training(cfg)` (kernels 1 and 2 must launch, the loss finite), and a
+     PanopticSports scene (JPEG frames, an off-centre principal point) read
+     and rendered through `render_set` and kernel 3, frame 0 held against
+     the plain version.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
 phase 20's loop as `loop_launches`, in phase 23's render as
-`eval_launches` and in phase 24's CLIs as `cli_launches`), the card's
-name and
-power limit, and as the last line {"ok": true, "device": {...}}. Imports
-nothing of JAX or of the JAX package.
+`eval_launches`, in phase 24's CLIs as `cli_launches` and in phase 26's as
+`neu3d_launches`), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
+package. `--only 25,26,27` runs the build and those phases alone (26 with
+19 and 22) and prints no kernels line.
 """
 import argparse
 import contextlib
@@ -2150,13 +2178,16 @@ class EvalProbe:
 
 
 def annotate_and_eval(dev, root, ae_ckpt, base, views, it, work, phase,
-                      prompts=EVAL_PROMPTS):
+                      prompts=EVAL_PROMPTS, dataset_type="hypernerf",
+                      embed=None):
     """The eval's inputs for the lang renders in `base` (render_set's
-    ours_<it> directory of `views`) and its run: COCO annotations of the
+    ours_<it> directory of `views`: the video split of a HyperNeRF scene,
+    the test split of a Neu3D one) and its run: COCO annotations of the
     `prompts` segments of largest area, each the convex hull of its pixels
-    (scipy), a text cache of their 512-d features and 4 seeded negatives,
-    the renders linked as levels 1-3 under `work`; then
-    `python -m langsplat4d_torch.eval` (its `main`) under an EvalProbe.
+    (scipy), a text cache of their features (through `embed` where given)
+    and 4 seeded negatives, the renders linked as levels 1-3 under `work`;
+    then `python -m langsplat4d_torch.eval` (its `main`) with
+    `--dataset_type` under an EvalProbe.
     Prints Mean IoU, the eval's s/frame and, on the card, the CUDA-event ms
     a frame of its stages. Returns (Mean IoU, the probe, the prompts'
     segment ids, their names, {(frame, segment): the hull's mask})."""
@@ -2172,7 +2203,10 @@ def annotate_and_eval(dev, root, ae_ckpt, base, views, it, work, phase,
     frames = len(views)
     # annotations, text cache and the feature layout eval reads
     lf_dir = os.path.join(root, "language_features")
-    segs = [v.get_language_feature_compact(lf_dir, 1, "video",
+    split, split_name, first_stem = (("video", "video_lang", 1)
+                                     if dataset_type == "hypernerf"
+                                     else ("test", "test_lang", 0))
+    segs = [v.get_language_feature_compact(lf_dir, 1, split,
                                            scene.dataset_type)[0]
             .astype(np.int64) for v in views]
     areas = np.bincount(np.concatenate([g[g >= 0] for g in segs]),
@@ -2181,7 +2215,8 @@ def annotate_and_eval(dev, root, ae_ckpt, base, views, it, work, phase,
     names = {k: f"segment{k:02d}" for k in objs}
     images, anns, hull_masks = [], [], {}
     for j, seg in enumerate(segs):
-        images.append({"id": j, "file_name": f"{j + 1:05d}_png.rf.{j}.jpg",
+        images.append({"id": j, "file_name":
+                       f"{j + first_stem:05d}_png.rf.{j}.jpg",
                        "height": H, "width": W})
         for k in objs:
             ys, xs = np.nonzero(seg == k)
@@ -2204,12 +2239,14 @@ def annotate_and_eval(dev, root, ae_ckpt, base, views, it, work, phase,
                        "images": images, "annotations": anns}, f)
     clip = np.load(os.path.join(lf_dir, sorted(os.listdir(lf_dir))[0]
                                 .replace("_s.npy", "_f.npy")))
-    negs = np.random.default_rng(23).normal(size=(4, CLIP_DIM))
+    if embed is not None:
+        clip = embed(clip)
+    negs = np.random.default_rng(23).normal(size=(4, clip.shape[1]))
     cache = os.path.join(work, "text_cache.npz")
     np.savez(cache, **{names[k]: clip[k] for k in objs},
              **dict(zip(R.NEGATIVES, negs.astype(np.float32))))
     for level in (1, 2, 3):
-        d = os.path.join(work, "exps", f"smoke_{level}", "video_lang")
+        d = os.path.join(work, "exps", f"smoke_{level}", split_name)
         os.makedirs(d)
         os.symlink(base, os.path.join(d, f"ours_{it}"))
     argv = ["--exp_name", "smoke", "--iterations", str(it),
@@ -2217,7 +2254,7 @@ def annotate_and_eval(dev, root, ae_ckpt, base, views, it, work, phase,
             "--ae_ckpt_path", ae_ckpt,
             "--encoder_hidden_dims", *map(str, AE_ENC),
             "--decoder_hidden_dims", *map(str, AE_DEC),
-            "--feat_dim", str(AE_ENC[-1]), "--dataset_type", "hypernerf",
+            "--feat_dim", str(AE_ENC[-1]), "--dataset_type", dataset_type,
             "--feat_root", os.path.join(work, "exps"),
             "--text_embedding_cache", cache,
             "--output_path", os.path.join(work, "out")]
@@ -2359,6 +2396,10 @@ def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
 # the reference (train.py:441), cut as tests/test_e2e.py:145-157 cuts it;
 # the Gaussians whose K-Means the plain version checks
 DISCRETE_ITERS = 200
+# phase A's stage budgets: half of phase 20's (coarse-base, coarse-lang,
+# fine-base; 300/100/300 until phase 26 came), which keeps the four runs
+# of the snapshots' turns inside the script's time
+CLI_STAGE_ITERS = (150, 50, 150, 50)
 KMEANS_PLAIN_ROWS = 256
 def free_port():
     """A TCP port on 127.0.0.1 that nothing listens on now."""
@@ -2461,7 +2502,8 @@ def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
     """Phase 24: scripts/train_eval.sh's flow through the port's CLIs (each
     its `main(argv)`) on phase 19's scene and phase 22's export.
     Phase A: `python -m langsplat4d_torch.train` with
-    configs/hypernerf/default.py at full width, phase 20's depth cuts,
+    configs/hypernerf/default.py at full width, the depth cuts `iters`
+    (CLI_STAGE_ITERS on the card) and `cuts` (phase 20's),
     --fine_lang_iterations 0 --no_dlang 0 and a checkpoint at fine-base's
     last iteration; the preset's render-process snapshots, the debug grid
     and the viewer bridge on a free port, where one request of a
@@ -3486,11 +3528,864 @@ def compare_builds(specs, rounds, dev):
                   f"{diff:.3g}; {regs} registers", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phases 25-27: the image codec and the scene formats
+
+def texture(h, w, c, seed=25):
+    """[h, w, c] uint8 smooth gradients with mild noise: content on which
+    libpng's adaptive filter choice varies row by row."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = ((3 * xx + 5 * yy)[..., None] // 4 + 40 * np.arange(c)
+           + rng.integers(0, 24, (h, w, c)))
+    return (img % 256).astype(np.uint8)
+
+
+def timed_ms(fn, reps):
+    """Median host ms of `reps` calls of fn (the codec is host code)."""
+    out, ms = None, []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), out
+
+
+def codec_phase(full_hw=(1014, 1352)):
+    """Phase 25: the port's image codec (csrc/imgcodec.cpp through
+    data/codec.py) on this host against its numpy twins, byte for byte,
+    on inputs the phase writes itself (the host has no PIL): PNGs through
+    `png_bytes` with each filter on every row, a seeded per-row mix and
+    libpng's adaptive choice, in grey, grey + alpha, RGB and RGBA; JPEGs
+    through the port's encoder (4:4:4) at quality 75 and 95 with and
+    without restart intervals, RGB and grey; PIL's resample in all four
+    filters, down and up, on RGB and RGBA. Then the times per frame of
+    `full_hw`, codec against twin: a PNG of Paeth rows, a PNG of adaptive
+    rows, a JPEG at quality 95, and the lanczos resample of a frame at
+    twice the size (2704x2028) to it. Returns the times."""
+    from langsplat4d_torch.data import codec, jpeg
+    from langsplat4d_torch.data import png as P
+    from langsplat4d_torch.data import resample as RS
+    t0 = time.perf_counter()
+    lib = codec.build_library()
+    codec.load_library()
+    print(f"[25] codec built with {codec.compiler()} "
+          f"{' '.join(codec.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s "
+          f"({os.path.basename(lib)})", flush=True)
+    rng = np.random.default_rng(25)
+    n = 0
+    for c in (1, 2, 3, 4):
+        img = texture(37, 53, c, seed=c)
+        for ft in (0, 1, 2, 3, 4, rng.integers(0, 5, 37),
+                   P.adaptive_filters(img)):
+            data = P.png_bytes(img, ft)
+            got, want = codec.decode_png(data), P.decode_png(data)
+            if not (np.array_equal(got, want) and np.array_equal(got, img)):
+                raise AssertionError(f"PNG c={c} filters {ft}: the codec "
+                                     f"differs from its twin")
+            n += 1
+    for c in (3, 1):
+        for q in (75, 95):
+            for rs in (0, 5):
+                img = texture(45, 61, c, seed=q + rs)
+                data = jpeg.jpeg_bytes(img, q, restart=rs)
+                got, want = codec.decode_jpeg(data), jpeg.decode_jpeg(data)
+                err = int(np.abs(got.astype(int) - img.reshape(
+                    got.shape)).max())
+                if not np.array_equal(got, want) or err > 64:
+                    raise AssertionError(f"JPEG c={c} q={q} restart={rs}: "
+                                         f"the codec differs from its twin")
+                n += 1
+    for c in (3, 4):
+        img = texture(41, 57, c, seed=c + 10)
+        for filt in RS.FILTERS:
+            for size in ((23, 17), (90, 70), (57, 29)):
+                if not np.array_equal(codec.resample(img, size, filt),
+                                      RS.resample(img, size, filt)):
+                    raise AssertionError(f"resample {filt} c={c} to {size}: "
+                                         f"the codec differs from its twin")
+                n += 1
+    print(f"[25] {n} cases: PNG (5 filters, a per-row mix, adaptive rows; "
+          f"grey, grey + alpha, RGB, RGBA), JPEG (q 75 and 95, restart "
+          f"intervals 0 and 5, RGB and grey), resample (4 filters, down and "
+          f"up, RGB and RGBA): the codec equals its numpy twins byte for "
+          f"byte", flush=True)
+    H, W = full_hw
+    frame = texture(H, W, 3)
+    times = {}
+    for label, ft in (("png_paeth", 4), ("png_adaptive",
+                                         P.adaptive_filters(frame))):
+        data = P.png_bytes(frame, ft)
+        k_ms, got = timed_ms(lambda: codec.decode_png(data), 5)
+        p_ms, want = timed_ms(lambda: P.decode_png(data), 1)
+        if not (np.array_equal(got, frame) and np.array_equal(want, frame)):
+            raise AssertionError(f"{label}: a decode differs")
+        times[label] = (k_ms, p_ms)
+    data = jpeg.jpeg_bytes(frame, 95)
+    k_ms, got = timed_ms(lambda: codec.decode_jpeg(data), 5)
+    p_ms, want = timed_ms(lambda: jpeg.decode_jpeg(data), 1)
+    if not np.array_equal(got, want):
+        raise AssertionError("the JPEG frame: the codec differs from its twin")
+    times["jpeg_q95"] = (k_ms, p_ms)
+    big = codec.resample(frame, (2 * W, 2 * H), "bicubic")
+    k_ms, got = timed_ms(lambda: codec.resample(big, (W, H), "lanczos"), 5)
+    p_ms, want = timed_ms(lambda: RS.resample(big, (W, H), "lanczos"), 1)
+    if not np.array_equal(got, want):
+        raise AssertionError("the lanczos frame: the codec differs from its "
+                             "twin")
+    times["lanczos_2x"] = (k_ms, p_ms)
+    k_ms, _ = timed_ms(lambda: codec.to_chw_f32(frame), 5)
+    times["to_chw_f32"] = (k_ms, None)
+    print(f"[25] ms per {W}x{H} frame on this host, codec (median of 5) / "
+          f"numpy twin: " + "; ".join(
+              f"{k} {a:.2f} / {b:.1f}" if b is not None else f"{k} {a:.2f}"
+              for k, (a, b) in times.items()), flush=True)
+    return times
+
+
+def look_at(c):
+    """World-to-camera rotation (rows: the camera's x, y, z in OpenCV's
+    axes) of a camera at `c` looking at the origin, world +y down the
+    image (phase 19's rig)."""
+    z = -np.asarray(c, np.float64) / np.linalg.norm(c)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x /= np.linalg.norm(x)
+    return np.stack([x, np.cross(z, x), z])
+
+
+def render_frame(dev, workload, cam, t, bg):
+    """The workload (gs, dcfg, net, aabb) rendered at fine-lang through the
+    port from HostCamera `cam` at time t: (uint8 [H, W, 3], language image
+    [L, H, W] on the device)."""
+    from langsplat4d_torch.render.driver import to8b
+    from langsplat4d_torch.render.pipeline import render
+    from langsplat4d_torch.render.raster import RasterSettings
+    gs, dcfg, net, aabb = workload
+    settings = RasterSettings(image_height=cam.height, image_width=cam.width,
+                              sh_degree=3)
+    with torch.no_grad():
+        out = render(settings, dcfg, "fine-lang", cam.camera_params(dev), t,
+                     gs, net, aabb, bg)
+    img = to8b(out["render"].cpu().numpy()).transpose(1, 2, 0)
+    return np.ascontiguousarray(img), out["language_feature_image"]
+
+
+def segment_language(gs, seed, n_features=N_FEATURES):
+    """Give each Gaussian of `gs` one of `n_features` seeded unit 3-d
+    features, that of the nearest of as many seeded positions (as phase 19
+    does); returns the features [K, 3] float32."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n_features, 3)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    anchors = torch.from_numpy(rng.uniform(-1.2, 1.2, size=(
+        n_features, 3)).astype(np.float32)).to(gs.xyz.device)
+    near = torch.cdist(gs.xyz, anchors).argmin(1)
+    f_dev = torch.from_numpy(feats).to(gs.xyz.device)
+    gs.language_feature = torch.where(gs.active_mask()[:, None],
+                                      f_dev[near], 0.0)
+    return feats
+
+
+def segments_of(lang, feats):
+    """Per-pixel argmax of a language image [3, H, W] against the features
+    [K, 3], -1 where the image's norm is under 0.2: [H, W] int16."""
+    f = torch.from_numpy(feats).to(lang.device)
+    seg = torch.einsum("chw,kc->khw", lang, f).argmax(0)
+    return torch.where(lang.norm(dim=0) < 0.2, -1, seg).to(
+        torch.int16).cpu().numpy()
+
+
+def initial_cloud(gs, n_init, rng):
+    """A seeded subset of `n_init` of the Gaussians' centres with noise,
+    and their colours in 0-255 (phase 19's initial cloud)."""
+    from langsplat4d_torch.core.sh import C0
+    n = gs.num_active
+    pick = np.sort(rng.choice(n, size=min(n_init, n), replace=False))
+    xyz = gs.xyz[:n].cpu().numpy()[pick]
+    xyz = xyz + rng.normal(0.0, 0.01, size=xyz.shape).astype(np.float32)
+    rgb = np.clip(gs.features_dc[:n, 0].cpu().numpy()[pick] * C0 + 0.5, 0, 1)
+    return xyz, np.round(rgb * 255.0)
+
+
+def write_files(items):
+    """Write (path, bytes-making function) pairs on a thread pool (zlib and
+    the codecs' numpy release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(item):
+        os.makedirs(os.path.dirname(item[0]), exist_ok=True)
+        with open(item[0], "wb") as f:
+            f.write(item[1]())
+    with ThreadPoolExecutor() as ex:
+        list(ex.map(one, items))
+
+
+NEU3D_HW = (1014, 1352)        # Neu3DDataset's fixed img_wh at downsample 1
+NEU3D_FOCAL_PX = 1200.0        # the focal at 1352 px
+
+
+def dynerf_cameras(cams):
+    """The rig of `write_dynerf_scene`: `cams` forward-facing cameras on a
+    3-wide grid in the plane z = -4.5, each looking at the origin. ->
+    [(centre, world-to-camera rotation)]."""
+    out = []
+    for i in range(cams):
+        c = np.array([(i % 3 - 1) * 0.6, (i // 3 - 0.5) * 0.4, -4.5])
+        out.append((c, look_at(c)))
+    return out
+
+
+def write_dynerf_scene(root, dev, workload, cams=6, frames=30,
+                       downsample=1.0, n_init=100_000, seed=26):
+    """A Neu3D (dynerf) scene in `root`, as the reader takes it once the
+    frames are extracted: `poses_bounds.npy` (LLFF: per camera the
+    columns [down, right, backwards, centre, (H, W, focal at 2704 px)] and
+    near, far), `cams` cameras of `dynerf_cameras` with cam00 the test
+    split, `frames` frames a camera under camNN/images/ as PNGs with
+    libpng's adaptive row filters, each the workload rendered at fine-lang
+    (Neu3D's deformation) at the reader's size for `downsample` (1352x1014
+    at 1) and its time (frame / 300); `points3D_downsample2.ply`, a seeded
+    subset of `n_init` centres; 3-d language ground truth of 32 segments
+    under the names the loader asks for (`language_feature_name`: the
+    300-frame mapping names every training frame after cam01, ROADMAP
+    queue 3), in `language_features`. The workload's language features are
+    replaced by the segments'. Returns (feats, {(split, index): segments})
+    for the annotations."""
+    from langsplat4d_torch.core.transforms import focal2fov
+    from langsplat4d_torch.data.cameras import HostCamera
+    from langsplat4d_torch.data.png import adaptive_filters, png_bytes
+    from langsplat4d_torch.data.readers import Neu3DDataset, store_ply
+    rng = np.random.default_rng(seed)
+    gs = workload[0]
+    feats = segment_language(gs, seed + 1)
+    w, h = int(1352 / downsample), int(1014 / downsample)
+    # the reader's focal is the stored one over 2704 / w
+    focal = NEU3D_FOCAL_PX * w / 1352
+    rows = []
+    for c, r_w2c in dynerf_cameras(cams):
+        x, y, z = r_w2c                       # OpenCV axes in the world
+        pose = np.stack([y, x, -z, c, [1014 * 2, 1352 * 2,
+                                       NEU3D_FOCAL_PX * 2]], 1)
+        rows.append(np.concatenate([pose.reshape(-1), [2.0, 8.0]]))
+    os.makedirs(root, exist_ok=True)
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    bg = torch.zeros(3, device=dev)          # the neu3d preset's background
+    segs, items = {}, []
+    for ci, (c, r_w2c) in enumerate(dynerf_cameras(cams)):
+        cam = HostCamera(R=r_w2c.T, T=-c @ r_w2c.T, fovx=focal2fov(focal, w),
+                         fovy=focal2fov(focal, h), width=w, height=h)
+        for f in range(frames):
+            img, lang = render_frame(dev, workload, cam, f / 300, bg)
+            path = os.path.join(root, f"cam{ci:02d}", "images", f"{f:04d}.png")
+            segs[path] = segments_of(lang, feats)
+            items.append((path, lambda img=img: png_bytes(
+                img, adaptive_filters(img))))
+    write_files(items)
+    xyz, rgb = initial_cloud(gs, n_init, rng)
+    store_ply(os.path.join(root, "points3D_downsample2.ply"), xyz, rgb)
+    lf_dir = os.path.join(root, "language_features")
+    os.makedirs(lf_dir, exist_ok=True)
+    by_index = {}
+    for split in ("train", "test"):
+        ds = Neu3DDataset(root, split, downsample=downsample)
+        for i, path in enumerate(ds.image_paths):
+            cam = ds[i]
+            cam.colmap_id = i                # as CameraDataset stamps it
+            stem = cam.language_feature_name(lf_dir, split, "dynerf")
+            np.save(stem + "_s.npy", np.stack([segs[path]] * 4))
+            np.save(stem + "_f.npy", feats)
+            by_index[(split, i)] = segs[path]
+    return feats, by_index
+
+
+def rotmat2qvec(r):
+    """COLMAP's quaternion (w, x, y, z) of a rotation matrix."""
+    m = np.asarray(r, np.float64)
+    w = np.sqrt(max(1.0 + m[0, 0] + m[1, 1] + m[2, 2], 1e-12)) / 2
+    return np.array([w, (m[2, 1] - m[1, 2]) / (4 * w),
+                     (m[0, 2] - m[2, 0]) / (4 * w),
+                     (m[1, 0] - m[0, 1]) / (4 * w)])
+
+
+def write_colmap_model(sparse, cams, hw, names, points=None, text=False):
+    """A COLMAP sparse model in `sparse`: one PINHOLE camera of size `hw`
+    (fx != fy), an image per (centre, world-to-camera rotation) of `cams`
+    named `names`, and the points (xyz, rgb 0-255) where given; binary or
+    text."""
+    import struct
+    h, w = hw
+    fx, fy = 0.9 * w, 0.85 * w
+    os.makedirs(sparse, exist_ok=True)
+    if text:
+        with open(os.path.join(sparse, "cameras.txt"), "w") as f:
+            f.write(f"# one camera\n1 PINHOLE {w} {h} {fx} {fy} {w / 2} "
+                    f"{h / 2}\n")
+        with open(os.path.join(sparse, "images.txt"), "w") as f:
+            for i, ((c, r), name) in enumerate(zip(cams, names)):
+                vals = [repr(float(v)) for v in (*rotmat2qvec(r), *(-r @ c))]
+                # a points2D line of one point: the reader drops blank lines
+                f.write(f"{i + 1} {' '.join(vals)} 1 {name}\n"
+                        f"0.5 0.5 -1\n")
+        if points is not None:
+            with open(os.path.join(sparse, "points3D.txt"), "w") as f:
+                for i, (p, col) in enumerate(zip(*points)):
+                    f.write(f"{i} {float(p[0])!r} {float(p[1])!r} "
+                            f"{float(p[2])!r} {int(col[0])} "
+                            f"{int(col[1])} {int(col[2])} 0.5\n")
+        return
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, w, h))
+        f.write(struct.pack("<dddd", fx, fy, w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for i, ((c, r), name) in enumerate(zip(cams, names)):
+            f.write(struct.pack("<idddddddi", i + 1, *rotmat2qvec(r),
+                                *(-r @ c), 1))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+    if points is not None:
+        with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+            f.write(struct.pack("<Q", len(points[0])))
+            for i, (p, col) in enumerate(zip(*points)):
+                f.write(struct.pack("<QdddBBBd", i, *p,
+                                    *np.asarray(col, np.uint8), 0.5))
+                f.write(struct.pack("<Q", 0))
+
+
+def orbit(n, radius=4.5, arc=0.5):
+    """`n` cameras on an arc of `arc` x pi/2 around the origin at height 0
+    (phase 19's orbit): [(centre, world-to-camera rotation)]."""
+    out = []
+    for i in range(n):
+        ang = arc * np.pi * i / max(n - 1, 1) - 0.25 * arc * np.pi
+        c = np.array([radius * np.sin(ang), 0.3, -radius * np.cos(ang)])
+        out.append((c, look_at(c)))
+    return out
+
+
+def frames_of(dev, workload, cams, hw, times, bg):
+    """The workload rendered from each (centre, rotation) of `cams` at the
+    matching time, fovx 1: uint8 [H, W, 3] images."""
+    from langsplat4d_torch.core.transforms import focal2fov
+    from langsplat4d_torch.data.cameras import HostCamera
+    h, w = hw
+    focal = w / 2 / np.tan(0.5)
+    out = []
+    for (c, r), t in zip(cams, times):
+        cam = HostCamera(R=r.T, T=-c @ r.T, fovx=1.0,
+                         fovy=focal2fov(focal, h), width=w, height=h)
+        out.append(render_frame(dev, workload, cam, t, bg)[0])
+    return out
+
+
+def write_colmap_scene(root, dev, workload, n_imgs=10, hw=(48, 64),
+                       n_points=300, text=False, seed=27):
+    """A COLMAP scene: `n_imgs` JPEGs (the port's encoder, quality 90) of
+    the workload on `orbit`, their model under sparse/0 (binary, or text),
+    `n_points` seeded points."""
+    from langsplat4d_torch.data.jpeg import jpeg_bytes
+    cams = orbit(n_imgs)
+    names = [f"frame_{i:03d}.jpg" for i in range(n_imgs)]
+    rng = np.random.default_rng(seed)
+    pts = (rng.uniform(-1.2, 1.2, (n_points, 3)),
+           rng.integers(0, 256, (n_points, 3)))
+    write_colmap_model(os.path.join(root, "sparse", "0"), cams, hw, names,
+                       pts, text=text)
+    imgs = frames_of(dev, workload, cams, hw, [0.0] * n_imgs,
+                     torch.zeros(3, device=dev))
+    write_files([(os.path.join(root, "images", n),
+                  lambda im=im: jpeg_bytes(im, 90))
+                 for n, im in zip(names, imgs)])
+
+
+def write_blender_scene(root, dev, workload, n_train=4, n_test=2,
+                        hw=(40, 48), fused=True, seed=27):
+    """A D-NeRF (Blender) scene: transforms_train.json and
+    transforms_test.json (camera_angle_x, per frame its time and its
+    camera-to-world matrix in Blender's axes), RGBA PNGs of the workload on
+    `orbit` with a seeded alpha, and fused.ply where `fused`."""
+    from langsplat4d_torch.data.png import png_bytes
+    from langsplat4d_torch.data.readers import store_ply
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    cams = orbit(n)
+    times = [i / (n - 1) for i in range(n)]
+    imgs = frames_of(dev, workload, cams, hw, times,
+                     torch.ones(3, device=dev))
+    items = []
+    for split, idx in (("train", range(n_train)),
+                       ("test", range(n_train, n))):
+        frames = []
+        for i in idx:
+            c, r = cams[i]
+            c2w = np.eye(4)
+            c2w[:3, :3] = r.T * np.array([1.0, -1.0, -1.0])  # OpenGL axes
+            c2w[:3, 3] = c
+            frames.append({"file_path": f"./{split}/r_{i:03d}",
+                           "time": times[i],
+                           "transform_matrix": c2w.tolist()})
+            alpha = rng.integers(0, 256, hw + (1,), dtype=np.uint8)
+            alpha[hw[0] // 3:, :] = 255
+            rgba = np.concatenate([imgs[i], alpha], 2)
+            items.append((os.path.join(root, split, f"r_{i:03d}.png"),
+                          lambda im=rgba: png_bytes(im, 4)))
+        os.makedirs(root, exist_ok=True)
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 1.0, "frames": frames}, f)
+    write_files(items)
+    if fused:
+        store_ply(os.path.join(root, "fused.ply"),
+                  rng.uniform(-1.2, 1.2, (300, 3)),
+                  rng.integers(0, 256, (300, 3)).astype(np.float64))
+
+
+def write_multipleview_scene(root, dev, workload, n_cams=3, frames=4,
+                             hw=(40, 48), seed=27):
+    """A MultipleView scene: camNN/frames/ of `frames` PNGs per camera
+    (the workload at time frame / frames), one COLMAP image per camera in
+    sparse_/, and points3D_multipleview.ply."""
+    from langsplat4d_torch.data.png import png_bytes
+    from langsplat4d_torch.data.readers import store_ply
+    rng = np.random.default_rng(seed)
+    cams = orbit(n_cams)
+    write_colmap_model(os.path.join(root, "sparse_"), cams, hw,
+                       [f"cam{i:02d}.png" for i in range(n_cams)])
+    items = []
+    for ci, cam in enumerate(cams):
+        imgs = frames_of(dev, workload, [cam] * frames, hw,
+                         [f / frames for f in range(frames)],
+                         torch.ones(3, device=dev))
+        items += [(os.path.join(root, f"cam{ci:02d}", "frames",
+                                f"{f:04d}.png"), lambda im=im: png_bytes(im))
+                  for f, im in enumerate(imgs)]
+    write_files(items)
+    store_ply(os.path.join(root, "points3D_multipleview.ply"),
+              rng.uniform(-1.2, 1.2, (300, 3)),
+              rng.integers(0, 256, (300, 3)).astype(np.float64))
+
+
+def write_panoptic_scene(root, dev, workload, n_cams=4, frames=2,
+                         hw=(40, 48), seed=27):
+    """A PanopticSports scene: train_meta.json and test_meta.json (the
+    first camera is the test split) with per frame and camera K (a
+    principal point off the centre), the world-to-camera matrix and the
+    file under ims/, written as JPEGs (quality 90) of the workload; the
+    initial cloud in init_pt_cld.npz."""
+    from langsplat4d_torch.core.transforms import focal2fov
+    from langsplat4d_torch.data.cameras import HostCamera
+    from langsplat4d_torch.data.jpeg import jpeg_bytes
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    cams = orbit(n_cams)
+    fx = fy = w / 2 / np.tan(0.5)
+    K = [[fx, 0.0, w / 2 + 1.5], [0.0, fy, h / 2 - 1.0], [0.0, 0.0, 1.0]]
+    items = []
+    metas = {s: {"w": w, "h": h, "k": [], "w2c": [], "fn": []}
+             for s in ("train", "test")}
+    for f in range(frames):
+        for s in metas.values():
+            for key in ("k", "w2c", "fn"):
+                s[key].append([])
+        for ci, (c, r) in enumerate(cams):
+            m = metas["test" if ci == 0 else "train"]
+            w2c = np.eye(4)
+            w2c[:3, :3], w2c[:3, 3] = r, -r @ c
+            fn = f"{ci}/{f:06d}.jpg"
+            m["k"][-1].append(K)
+            m["w2c"][-1].append(w2c.tolist())
+            m["fn"][-1].append(fn)
+            cam = HostCamera(R=r.T, T=-c @ r.T, fovx=focal2fov(fx, w),
+                             fovy=focal2fov(fy, h), width=w, height=h)
+            img = render_frame(dev, workload, cam, f / frames,
+                               torch.zeros(3, device=dev))[0]
+            items.append((os.path.join(root, "ims", fn),
+                          lambda im=img: jpeg_bytes(im, 90)))
+    write_files(items)
+    for s, m in metas.items():
+        with open(os.path.join(root, f"{s}_meta.json"), "w") as fh:
+            json.dump(m, fh)
+    pts = np.concatenate([rng.uniform(-1.2, 1.2, (300, 3)),
+                          rng.uniform(0, 1, (300, 3)), np.ones((300, 1))], 1)
+    np.savez(os.path.join(root, "init_pt_cld.npz"), data=pts)
+
+
+# phase 26: Neu3D at full width through the CLIs
+NEU3D_CAMS, NEU3D_FRAMES = 6, 30
+CACHE_TURNS_MB = (4096, 256, 256, 4096)   # the default, and ~60 of 180 frames
+CACHE_TURN_ITERS, CACHE_TURN_TIMED = 70, 25
+
+
+class DecodeTimer:
+    """Host seconds of every `readers.load_image` call while entered (the
+    lazy decode of a camera's image; no device synchronisation)."""
+
+    def __enter__(self):
+        from langsplat4d_torch.data import readers
+        self.readers, self.fn, self.calls = readers, readers.load_image, []
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = self.fn(*a, **k)
+            self.calls.append(time.perf_counter() - t0)
+            return out
+        readers.load_image = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.readers.load_image = self.fn
+
+
+class StepStamps:
+    """The host clock at every call of the loop's train_step_packed while
+    entered: it/s over the last iterations of a stage."""
+
+    def __enter__(self):
+        from langsplat4d_torch.train import loop
+        self.loop, self.fn, self.t = loop, loop.train_step_packed, []
+
+        def stamped(*a, **k):
+            self.t.append(time.perf_counter())
+            return self.fn(*a, **k)
+        loop.train_step_packed = stamped
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.train_step_packed = self.fn
+
+    def rate(self, last):
+        return (last - 1) / (self.t[-1] - self.t[-last])
+
+
+def neu3d_config_file(root, hidden=None):
+    """configs/neu3d/default.py through `_base_`, the watchdog's re-exec
+    off (a trip fails the run), `hidden` overriding deformation fields (a
+    CPU rehearsal narrows the network; the card runs the preset's)."""
+    path = os.path.join(root, "neu3d_config.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = "
+                f"{os.path.join(REPO, 'configs', 'neu3d', 'default.py')!r}"
+                "\nwatchdog_execv = False\n"
+                + (f"ModelHiddenParams = {hidden!r}\n" if hidden else ""))
+    return path
+
+
+def neu3d_phase(dev, root, ae_ckpt, workload=None, downsample=1.0,
+                cams=NEU3D_CAMS, frames=NEU3D_FRAMES, n_init=100_000,
+                iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None,
+                turn_iters=CACHE_TURN_ITERS, turn_timed=CACHE_TURN_TIMED):
+    """Phase 26: Neu3D through the port's CLIs. `write_dynerf_scene` in
+    `root` from phase 3's 200k seeded Gaussians with Neu3D's deformation
+    (`workload`, else bench_workload's), 6 cameras x 30 frames at the
+    reader's fixed 1352x1014; read back through the port's Scene by a path
+    relative to the checkout (the reader cuts the image directory at the
+    path's first dot, queue 3). `python -m langsplat4d_torch.train` with
+    configs/neu3d/default.py at full width (batch 4), phase 20's depth
+    cuts: it/s per stage, the decode ms a frame (load_image) and the batch
+    build's ms an image on the first epoch's misses against cached hits.
+    `.render --mode lang` over the test split, frame 0 held against the
+    plain kernel on its rows; `.eval --dataset_type neu3d` on test_lang
+    with annotations of the test frames' 6 largest segments and a text
+    cache of their features decoded by phase 22's autoencoder (`ae_ckpt`).
+    Last, fine-base from the initial state in turns at the default
+    4096 MB GT cache and at 256 MB (CACHE_TURNS_MB, `turn_iters`
+    iterations each, it/s over the last `turn_timed`). Returns the
+    kernels' launches in the CLIs' runs. `downsample` and the sizes are
+    for a rehearsal on the CPU."""
+    from langsplat4d_torch.data import readers
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    if workload is None:
+        workload = bench_workload(dev, frames=1)[:4]
+    whole = readers.SCENE_LOAD_CALLBACKS["dynerf"]
+    if downsample != 1.0:
+        # a CPU rehearsal reads the scene at the size it was written at, as
+        # tests/test_torch_neu3d_slice.py does (the reader's is 1352x1014)
+        def small(datadir):
+            info = whole(datadir)
+            train, test = (readers.Neu3DDataset(datadir, s, downsample)
+                           for s in ("train", "test"))
+            return readers.SceneInfo(
+                info.point_cloud, train, test, test.video_cam_infos(),
+                readers.get_nerfpp_norm(train.cam_infos()), info.ply_path,
+                maxtime=300)
+        readers.SCENE_LOAD_CALLBACKS["dynerf"] = small
+    try:
+        return _neu3d_phase(dev, root, ae_ckpt, workload, downsample, cams,
+                            frames, n_init, iters, cuts, hidden, turn_iters,
+                            turn_timed, t0)
+    finally:
+        readers.SCENE_LOAD_CALLBACKS["dynerf"] = whole
+
+
+def _neu3d_phase(dev, root, ae_ckpt, workload, downsample, cams, frames,
+                 n_init, iters, cuts, hidden, turn_iters, turn_timed, t0):
+    from langsplat4d_torch.ae.model import load_ckpt
+    from langsplat4d_torch.config import (Config, apply_overrides,
+                                          load_py_config)
+    from langsplat4d_torch.data import gt_cache
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.ops import grid_sample as G
+    from langsplat4d_torch.render import __main__ as render_cli
+    from langsplat4d_torch.train import __main__ as train_cli
+    from langsplat4d_torch.train import loop
+    from langsplat4d_torch.utils.timer import Timer
+    on_card = dev.type == "cuda"
+    write_dynerf_scene(root, dev, workload, cams=cams, frames=frames,
+                       downsample=downsample, n_init=n_init)
+    del workload
+    if on_card:
+        torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    rel = os.path.relpath(root)
+    if "." in rel:
+        raise AssertionError(f"the scene's path {rel!r} holds a dot: the "
+                             f"Neu3D reader would cut it there (queue 3)")
+    scene = loop.Scene(rel)
+    train, test = scene.getTrainCameras(), scene.getTestCameras()
+    first = train[0]
+    print(f"[26] dynerf scene written in {write_s:.1f} s: {cams} cameras x "
+          f"{frames} frames at {first.width}x{first.height} (adaptive-filter "
+          f"PNGs), {len(scene.point_cloud.points)} initial points; splits "
+          f"train {len(train)} / test {len(test)} / video "
+          f"{len(scene.getVideoCameras())}; the training frames' language "
+          f"files are named after {first.cam_name} (the 300-frame mapping)",
+          flush=True)
+    cfg_file = neu3d_config_file(root, hidden)
+    model_path = os.path.join(root, "model")
+    names = ("composite_tiles", "composite_tiles_backward",
+             "composite_stream", "composite_stream_chunks",
+             "composite_stream_chunks_backward")
+    for n in names:
+        getattr(C, n).launches = 0
+    G.plane_grad.launches = 0
+    device = [] if on_card else ["--device", str(dev)]
+    flags = dict(zip(("coarse_base_iterations", "coarse_lang_iterations",
+                      "fine_base_iterations", "fine_lang_iterations"),
+                     iters), **cuts)
+    flags = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+    print("[26] depth cuts: " + " ".join(flags), flush=True)
+    argv = ["--source_path", rel, "--model_path", model_path,
+            "--expname", "smoke_neu3d", "--configs", cfg_file,
+            "--language_features_name", "language_features",
+            "--feature_level", "1", "--port", "-1",
+            "--save_iterations", str(iters[3])] + flags + device
+    saved = os.environ.get("ExpsDir")
+    os.environ["ExpsDir"] = os.path.join(root, "exps")
+    try:
+        with LoopProbe(dev) as probe, DecodeTimer() as dec:
+            t0 = time.perf_counter()
+            state = train_cli.main(argv)
+            train_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("ExpsDir", None)
+        else:
+            os.environ["ExpsDir"] = saved
+    for stage, n_it, secs in probe.stages:
+        ms = probe.step_ms(stage)
+        print(f"[26] {stage}: {n_it} iterations in {secs:.2f} s, "
+              f"{n_it / secs:.3f} it/s through the train CLI; CUDA-event "
+              f"step median {np.median(ms) if ms else float('nan'):.3f} ms",
+              flush=True)
+        if not np.isfinite(probe.losses(stage)).all():
+            raise AssertionError(f"a {stage} loss is not finite")
+    miss = [s for s, m in probe.builds if m]
+    hit = [s for s, m in probe.builds if not m]
+    print(f"[26] train CLI {train_s:.1f} s, final num_active "
+          f"{state.num_active}; decode (load_image, {first.width}x"
+          f"{first.height} PNG) {len(dec.calls)} calls, "
+          f"{np.mean(dec.calls) * 1e3:.2f} ms each (median "
+          f"{np.median(dec.calls) * 1e3:.2f}; the misses of a batch on the "
+          f"loop's pool); batch build on the producer thread: {len(miss)} "
+          f"builds with a GT-cache miss, {np.mean(miss) * 1e3:.2f} ms each, "
+          f"{len(hit)} all cached, {np.mean(hit) * 1e3:.2f} ms each; "
+          f"events: "
+          + ", ".join(f"{s}@{i} {w} -> {n}" for s, i, w, n in probe.events),
+          flush=True)
+    del state
+    # the render CLI over the test split, lang mode
+    argv_r = ["--model_path", model_path, "--source_path", rel,
+              "--configs", cfg_file, "--mode", "lang",
+              "--load_stage", "fine-lang", "--skip_train", "--skip_video",
+              "--novideo", "1", "--noimage", "1"] + device
+    before = C.composite_stream.launches
+    with FirstComposite() as first_c:
+        fps = render_cli.main(argv_r)["test"]
+    render_launches = C.composite_stream.launches - before
+    first_c.hold(26, "the render CLI's test frame 0 at fine-lang")
+    out = os.path.join(model_path, "test_lang", f"ours_{iters[3]}")
+    maps = sorted(os.listdir(os.path.join(out, "renders_npy")))
+    m0 = np.load(os.path.join(out, "renders_npy", maps[0]))
+    print(f"[26] render CLI: {len(maps)} test frames in lang mode, FPS "
+          f"{fps:.3f}, composite_stream launches {render_launches}",
+          flush=True)
+    if (len(maps) != len(test) or m0.shape != (first.height, first.width,
+                                               AE_ENC[-1])
+            or not np.isfinite(m0).all()):
+        raise AssertionError("the render CLI wrote bad maps")
+    if on_card and render_launches < len(test):
+        raise AssertionError("the render kernel did not launch per frame")
+    launches = {n: getattr(C, n).launches for n in names}
+    launches["plane_grad"] = G.plane_grad.launches
+    # the eval CLI on those renders; the prompts' embeddings are their
+    # features through the autoencoder's decoder, as the renders' are
+    ae = load_ckpt(ae_ckpt, AE_ENC, AE_DEC, device="cpu")
+
+    def decoded(table):
+        with torch.no_grad():
+            return ae.decode(torch.from_numpy(table).float()).numpy()
+    miou, probe_e, *_ = annotate_and_eval(
+        dev, rel, ae_ckpt, out, list(test), iters[3],
+        os.path.join(root, "eval"), 26, dataset_type="neu3d",
+        embed=decoded)
+    if not (len(probe_e.results) == len(test) and miou is not None
+            and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"the eval gave Mean IoU {miou}")
+    if on_card:
+        for k in ("composite_tiles", "composite_tiles_backward",
+                  "composite_stream", "plane_grad"):
+            if not launches[k]:
+                raise AssertionError(f"{k} never launched in phase 26")
+    print("[26] launches in the CLIs' runs: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()), flush=True)
+    # fine-base in turns at two GT-cache sizes
+    cfg = Config()
+    apply_overrides(cfg, load_py_config(cfg_file))
+    cfg.model.source_path = rel
+    cfg.model.model_path = os.path.join(root, "turns")
+    cfg.extras.test_iterations, cfg.extras.save_iterations = [], []
+    cfg.extras.checkpoint_iterations = []
+    rates = []
+    for mb in CACHE_TURNS_MB:
+        cfg.runtime.gt_cache_mb = mb
+        cache = gt_cache.get_cache(mb, dev)
+        cache.clear()
+        hits, misses = cache.hits, cache.misses
+        st, dcfg = loop.init_state_from_scene(cfg, scene, seed=0, device=dev)
+        with StepStamps() as stamps:
+            loop.scene_reconstruction(cfg, scene, st, dcfg, "fine-base",
+                                      False, turn_iters, Timer())
+        if on_card:
+            torch.cuda.synchronize()
+        rates.append(stamps.rate(turn_timed))
+        print(f"[26] fine-base at gt_cache_mb {mb}: {turn_iters} iterations, "
+              f"{rates[-1]:.3f} it/s over the last {turn_timed}; cache "
+              f"{cache.hits - hits} hits, {cache.misses - misses} misses",
+              flush=True)
+        del st
+    big = [r for mb, r in zip(CACHE_TURNS_MB, rates) if mb == 4096]
+    small = [r for mb, r in zip(CACHE_TURNS_MB, rates) if mb != 4096]
+    print(f"[26] fine-base it/s in turns (4096, 256, 256, 4096 MB): "
+          + ", ".join(f"{r:.3f}" for r in rates)
+          + f"; 256 MB / 4096 MB {np.mean(small) / np.mean(big):.4f}",
+          flush=True)
+    gt_cache.get_cache(cfg.runtime.gt_cache_mb, dev).clear()
+    return launches
+
+
+def formats_phase(dev, root, iters=5, hw=(48, 64), n=20_000, net_width=None):
+    """Phase 27: the other formats, each a tiny scene the phase writes from
+    `n` seeded Gaussians (bench_workload's kind). Blender (configs/dnerf's
+    preset; RGBA frames composited and resized to 800x800), COLMAP (JPEG
+    frames from the port's encoder) and MultipleView (its preset):
+    `training(cfg)` for `iters` iterations of coarse-base and of fine-base,
+    which must launch kernels 1 and 2 and keep the loss finite.
+    PanopticSports (JPEG ims/, a principal point off the centre): the
+    reader and render_set of its test cameras through kernel 3, frame 0
+    held against the plain version on its rows. `net_width` narrows the
+    presets' networks for a CPU rehearsal."""
+    from langsplat4d_torch.checkpoint import TrainedModel
+    from langsplat4d_torch.config import (Config, apply_overrides,
+                                          load_py_config)
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render.driver import render_set
+    from langsplat4d_torch.train import loop
+    on_card = dev.type == "cuda"
+    shutil.rmtree(root, ignore_errors=True)
+    gs, dcfg, net, aabb, _ = bench_workload(dev, frames=1, n=n, hw=hw)
+    workload = (gs, dcfg, net, aabb)
+    for kind, writer, preset in (
+            ("blender", write_blender_scene, ("dnerf", "dnerf_default.py")),
+            ("colmap", write_colmap_scene, None),
+            ("multipleview", write_multipleview_scene,
+             ("multipleview", "default.py"))):
+        d = os.path.join(root, kind)
+        writer(d, dev, workload)
+        cfg = Config()
+        if preset:
+            apply_overrides(cfg, load_py_config(os.path.join(
+                REPO, "configs", *preset)))
+        if net_width:
+            cfg.hidden.net_width = net_width
+        cfg.model.source_path = d
+        cfg.model.model_path = os.path.join(d, "model")
+        cfg.runtime.watchdog_execv = False
+        cfg.extras.test_iterations, cfg.extras.save_iterations = [], []
+        cfg.extras.checkpoint_iterations = []
+        for k, v in zip(("coarse_base_iterations", "coarse_lang_iterations",
+                         "fine_base_iterations", "fine_lang_iterations"),
+                        (iters, 0, iters, 0)):
+            setattr(cfg.optim, k, v)
+        before = {k: getattr(C, k).launches for k in (
+            "composite_tiles", "composite_tiles_backward")}
+        with LoopProbe(dev) as probe:
+            t0 = time.perf_counter()
+            state = loop.training(cfg, device=dev)
+            secs = time.perf_counter() - t0
+        got = {k: getattr(C, k).launches - v for k, v in before.items()}
+        losses = probe.losses("coarse-base") + probe.losses("fine-base")
+        scene = loop.Scene(d)
+        cam = scene.getTrainCameras()[0]
+        print(f"[27] {kind}: {len(scene.getTrainCameras())} train / "
+              f"{len(scene.getTestCameras())} test cameras at "
+              f"{cam.width}x{cam.height}; training(cfg) {iters} coarse-base "
+              f"+ {iters} fine-base iterations in {secs:.1f} s, "
+              f"{state.num_active} Gaussians, loss first {losses[0]:.4f} "
+              f"last {losses[-1]:.4f}; launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items()), flush=True)
+        if len(losses) != 2 * iters or not np.isfinite(losses).all():
+            raise AssertionError(f"{kind}: a loss is not finite")
+        if on_card and not all(got.values()):
+            raise AssertionError(f"{kind}: kernels 1 and 2 did not launch")
+        del state
+    d = os.path.join(root, "panoptic")
+    write_panoptic_scene(d, dev, workload)
+    scene = loop.Scene(d)
+    views = list(scene.getTestCameras())
+    cfg = Config()
+    cfg.model.model_path = os.path.join(d, "model")
+    cfg.model.white_background = False
+    cfg.runtime.nonormalized = False
+    model = TrainedModel(gaussians=gs, deform=net, aabb=aabb,
+                         active_sh_degree=3)
+    before = C.composite_stream.launches
+    with FirstComposite() as first_c:
+        fps = render_set(cfg, model, dcfg, scene, "test", 0, views,
+                         mode="rgb", load_stage="fine-lang", novideo=True)
+    launches = C.composite_stream.launches - before
+    first_c.hold(27, "PanopticSports test frame 0")
+    cam = views[0]
+    print(f"[27] PanopticSports: {len(scene.getTrainCameras())} train / "
+          f"{len(views)} test cameras at {cam.width}x{cam.height}, K "
+          f"principal point ({cam.K[0, 2]:.1f}, {cam.K[1, 2]:.1f}); "
+          f"render_set FPS {fps:.3f}, composite_stream launches {launches}",
+          flush=True)
+    if on_card and launches < len(views):
+        raise AssertionError("PanopticSports: the render kernel did not "
+                             "launch per frame")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[],
                     metavar="NAME=TREE")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--only", default="", metavar="25,26,27",
+                    help="run the build and only these of phases 25-27 (26 "
+                         "with 19 and 22, whose autoencoder it uses), "
+                         "without the kernels line")
     args = ap.parse_args()
     # warnings only, as before the CLIs of phases 22-23 (which add an INFO
     # handler to stdout where there is none): the output keeps its phases
@@ -3515,6 +4410,11 @@ def main():
     from langsplat4d_torch.train.step import train_step
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def stamp(phases):
+        secs = time.perf_counter() - t_start
+        print(f"[t] phases {phases} done at {secs:.1f} s", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3526,10 +4426,35 @@ def main():
         print(smi)
         return 0
 
-    # 1. build
+    # 1. build: the kernels (one nvcc each) and the host image codec (c++)
+    # together
+    from concurrent.futures import ThreadPoolExecutor
+    from langsplat4d_torch.data import codec
     every = tuple(composite.ENTRY_POINTS)
+    with ThreadPoolExecutor(1) as ex:
+        host = ex.submit(codec.build_library)
+        secs = composite.build_seconds(every)
+        host.result()
     print(f"[1] build+load of {len(every)} kernels, in parallel: "
-          f"{composite.build_seconds(every):.2f} s", flush=True)
+          f"{secs:.2f} s; the image codec beside them", flush=True)
+    scene_root = os.path.join(REPO, "langsplat4d_torch", "_build", "scene")
+    neu3d_root = os.path.join(REPO, "langsplat4d_torch", "_build", "neu3d")
+    formats_root = os.path.join(REPO, "langsplat4d_torch", "_build",
+                                "formats")
+    if args.only:
+        only = {int(p) for p in args.only.split(",")}
+        if not only <= {25, 26, 27}:
+            raise SystemExit("--only takes phases among 25, 26, 27")
+        if 25 in only:
+            codec_phase()
+        if 26 in only:
+            shutil.rmtree(scene_root, ignore_errors=True)
+            scene_phase(dev, scene_root)
+            neu3d_phase(dev, neu3d_root, ae_phase(dev, scene_root))
+        if 27 in only:
+            formats_phase(dev, formats_root)
+        print(smi)
+        return 0
 
     # 2. kernel vs plain on synthetic segments
     errs = []
@@ -3565,6 +4490,7 @@ def main():
         raise AssertionError(f"kernel launched {launches} times for "
                              f"{len(views)} frames")
 
+    stamp("1-3")
     # 4. per-stage device times
     settings = RasterSettings(image_height=views[0].height,
                               image_width=views[0].width, sh_degree=3,
@@ -3662,6 +4588,7 @@ def main():
     del gs, net, views, rows, starts, img, ref
     torch.cuda.empty_cache()
 
+    stamp("4-5")
     # 6. the kernels' resources, one line pair per row width 32, 24, 16,
     # and the blocks an SM holds of each; no kernel may spill
     for name in composite.KERNELS:
@@ -3709,6 +4636,7 @@ def main():
         name="composite_stream", launches=launches, max_abs_err=max(errs),
         ms=k_ms, plain_ms=p_ms, bound_ms=s_bound[0], bound_by=s_bound[1]))
 
+    stamp("6-11")
     # 12. the stream-layout training kernels vs plain on synthetic segments
     for hard, pw in segment_cases():
         f_err, b_err, b_excess = compare_segment_case(hard, pw, dev)
@@ -3727,6 +4655,7 @@ def main():
                                              list_ms=list_ms)
     entries += stream_entries
 
+    stamp("12-15")
     # 16. the loop's switch on the workload's state
     state, cfg, _, _ = train_workload(dev)
     sat = binning_report(cfg.settings, train_camera().camera_params(dev),
@@ -3754,8 +4683,8 @@ def main():
     # 18. the cell-list render option
     entries.append(cell_phases(dev))
 
+    stamp("16-18")
     # 19. a HyperNeRF scene on disk, read back through the port's Scene
-    scene_root = os.path.join(REPO, "langsplat4d_torch", "_build", "scene")
     shutil.rmtree(scene_root, ignore_errors=True)
     scene_phase(dev, scene_root)
 
@@ -3763,6 +4692,7 @@ def main():
     # (phase 20 trains on the export)
     ae_ckpt = ae_phase(dev, scene_root)
 
+    stamp("19, 22")
     # 20. training(cfg) from that scene at full width, and the saved model
     loop_launches, render_launches, plane_inputs, loop_rates = loop_phase(
         dev, scene_root, step_ms=list_ms)
@@ -3770,6 +4700,7 @@ def main():
     for e in entries:
         e["loop_launches"] = loop_launches.get(e["name"], 0)
 
+    stamp("20")
     # 21. the loop's kernels against their plain versions; determinism,
     # with the plane-gradient kernel held against its plain version
     determinism_phase(dev, scene_root)
@@ -3779,6 +4710,7 @@ def main():
     del plane_inputs
     torch.cuda.empty_cache()
 
+    stamp("21")
     # 23. evaluation of the saved model: lang render, AE decode, relevancy,
     # mIoU; the video helpers
     eval_launches = eval_phase(dev, scene_root, ae_ckpt)
@@ -3787,14 +4719,37 @@ def main():
                               else 0)
     torch.cuda.empty_cache()
 
+    stamp("23")
     # 24. scripts/train_eval.sh through the port's CLIs: train (phase A and
     # the discrete phase B), render, eval; the discrete stage's K-Means
-    cli_launches = cli_phase(dev, scene_root, ae_ckpt, loop_rates)
+    cli_launches = cli_phase(dev, scene_root, ae_ckpt, loop_rates,
+                             iters=CLI_STAGE_ITERS)
     for e in entries:
         e["cli_launches"] = cli_launches.get(e["name"], 0)
+    torch.cuda.empty_cache()
+
+    stamp("24")
+    # 25. the image codec on this host against its numpy twins
+    codec_phase()
+
+    stamp("25")
+    # 26. Neu3D at full width through the CLIs: train, render, eval; the
+    # GT cache's size in turns
+    neu3d_launches = neu3d_phase(dev, neu3d_root, ae_ckpt)
+    for e in entries:
+        e["neu3d_launches"] = neu3d_launches.get(e["name"], 0)
+    shutil.rmtree(neu3d_root, ignore_errors=True)
     shutil.rmtree(scene_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    stamp("26")
+    # 27. the Blender, COLMAP, MultipleView and PanopticSports readers on
+    # the card
+    formats_phase(dev, formats_root)
+    shutil.rmtree(formats_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    stamp("27")
     # 11, and 15's: the profiles of the two training steps
     for stream, ms_step, phase in ((False, list_ms, 11),
                                    (True, stream_ms, 15)):

@@ -8,10 +8,20 @@ the example quantization tables of Annex K.1 scaled by quality as libjpeg
 scales them (`jpeg_quality_scaling`), and the example Huffman tables of
 Annex K.3. Grey images are one component; RGB images are YCbCr (JFIF) at
 full resolution in all three components (4:4:4: cv2 and PIL subsample the
-chroma 2x2, which a decoder reads just the same). The entropy coder is
-numpy over the whole image: the symbols of every block are formed at once,
-put in scan order by one stable sort, and packed into bits together.
-Decoding waits for the scene readers that need it.
+chroma 2x2, which a decoder reads just the same), optionally with a restart
+marker every `restart` MCUs. The entropy coder is numpy over the whole
+image: the symbols of every block are formed at once, put in scan order by
+one stable sort, and packed into bits together.
+
+`decode_jpeg` is the plain twin of the port's codec (csrc/imgcodec.cpp,
+data/codec.py), which the tests hold it to byte for byte: baseline
+sequential Huffman JPEG, 8-bit, 1 or 3 components at 4:4:4, 4:2:2 or
+4:2:0, with restart intervals, through libjpeg's integer inverse DCT
+(jidctint.c, islow), fancy upsampling (jdsample.c) and fixed-point YCbCr
+to RGB (jdcolor.c), so that it gives libjpeg's bytes. The Huffman decode
+is a Python loop; the rest is numpy over every block or row at once.
+Progressive, arithmetic-coded, lossless, 12-bit and 4-component files
+raise NotImplementedError naming the file.
 """
 from __future__ import annotations
 
@@ -216,10 +226,12 @@ def _entropy_code(coefs: np.ndarray, comp: np.ndarray, tables) -> bytes:
     return np.insert(data, ff + 1, 0).tobytes()
 
 
-def jpeg_bytes(img: np.ndarray, quality: int = 75) -> bytes:
+def jpeg_bytes(img: np.ndarray, quality: int = 75, restart: int = 0
+               ) -> bytes:
     """Encode an [H, W] (or [H, W, 1]) grey or [H, W, 3] RGB uint8 image as
     a baseline JFIF JPEG at `quality` (1-100, libjpeg's scale: cv2's
-    default is 95, PIL's 75)."""
+    default is 95, PIL's 75), with a restart marker after every `restart`
+    MCUs (0: none)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"jpeg_bytes takes uint8, not {img.dtype}")
@@ -262,10 +274,19 @@ def jpeg_bytes(img: np.ndarray, quality: int = 75) -> bytes:
         for cls, (counts, symbols) in enumerate(specs[t]):
             out.append(_segment(0xC4, bytes([cls << 4 | t]) + bytes(counts)
                                 + bytes(symbols)))
+    if restart:
+        out.append(_segment(0xDD, struct.pack(">H", restart)))
     out.append(_segment(0xDA, bytes([nc]) + b"".join(
         bytes([c + 1, min(c, 1) << 4 | min(c, 1)]) for c in range(nc))
         + b"\x00\x3f\x00"))
-    out.append(_entropy_code(coefs, comp, tables))
+    # each interval of `restart` MCUs coded on its own (its DC predictors
+    # start from 0), then the marker RST0-RST7 in turn
+    step = (restart or nb) * nc
+    for i, lo in enumerate(range(0, nb * nc, step)):
+        if i:
+            out.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+        out.append(_entropy_code(coefs[lo:lo + step], comp[lo:lo + step],
+                                 tables))
     out.append(b"\xff\xd9")
     return b"".join(out)
 
@@ -273,3 +294,340 @@ def jpeg_bytes(img: np.ndarray, quality: int = 75) -> bytes:
 def write_jpeg(path: str, img: np.ndarray, quality: int = 75) -> None:
     with open(path, "wb") as f:
         f.write(jpeg_bytes(img, quality))
+
+
+# --------------------------------------------------------------------------
+# decoding: the plain twin of csrc/imgcodec.cpp's JPEG decoder
+
+# what the decoders refuse, by the C codec's codes (csrc/imgcodec.cpp
+# JpegError)
+UNSUPPORTED = {2: "progressive JPEG", 3: "arithmetic-coded JPEG",
+               4: "JPEG of a precision other than 8 bits",
+               5: "JPEG of other than 1 or 3 components (CMYK?)",
+               6: "JPEG chroma sampling other than 4:4:4, 4:2:2 or 4:2:0",
+               7: "lossless or hierarchical JPEG"}
+_SOF_REFUSED = {0xC2: 2, 0xC6: 2, 0xCA: 2, 0xCE: 2, 0xC3: 7, 0xC7: 7,
+                0xCB: 7, 0xCF: 7, 0xC5: 7, 0xC9: 3, 0xCC: 3, 0xCD: 3}
+# zigzag position -> natural index, and 16 more entries of 63 (libjpeg's
+# jpeg_natural_order: a corrupt run length cannot index past the block)
+NATURAL = np.concatenate([ZIGZAG, np.full(16, 63)]).tolist()
+# jidctint.c's constants (CONST_BITS 13, PASS1_BITS 2)
+_F = dict(f0298=2446, f0390=3196, f0541=4433, f0765=6270, f0899=7373,
+          f1175=9633, f1501=12299, f1847=15137, f1961=16069, f2053=16819,
+          f2562=20995, f3072=25172)
+
+
+def unsupported(code: int, name: str) -> NotImplementedError:
+    return NotImplementedError(f"{name}: {UNSUPPORTED[code]} (the port "
+                               f"decodes baseline JPEG)")
+
+
+def _lookup(counts, symbols):
+    """A 16-bit lookahead table of a Huffman table: entry (length << 8 |
+    symbol) for every 16-bit prefix that starts with a code, else 0."""
+    table = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(counts, start=1):
+        for _ in range(count):
+            lo = code << (16 - length)
+            table[lo:lo + (1 << (16 - length))] = length << 8 | symbols[k]
+            code += 1
+            k += 1
+        code <<= 1
+    return table.tolist()
+
+
+def _idct_1d(x, final_shift):
+    """One pass of jpeg_idct_islow over the last axis of the int64 array x
+    [..., 8]: the eight outputs, each descaled by `final_shift`."""
+    def descale(v):
+        return (v + (1 << (final_shift - 1))) >> final_shift
+    f = _F
+    z2, z3 = x[..., 2], x[..., 6]
+    z1 = (z2 + z3) * f["f0541"]
+    t2 = z1 + z3 * -f["f1847"]
+    t3 = z1 + z2 * f["f0765"]
+    t0 = (x[..., 0] + x[..., 4]) * (1 << 13)
+    t1 = (x[..., 0] - x[..., 4]) * (1 << 13)
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    t0, t1, t2, t3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * f["f1175"]
+    t0, t1 = t0 * f["f0298"], t1 * f["f2053"]
+    t2, t3 = t2 * f["f3072"], t3 * f["f1501"]
+    z1, z2 = z1 * -f["f0899"], z2 * -f["f2562"]
+    z3, z4 = z3 * -f["f1961"] + z5, z4 * -f["f0390"] + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    return np.stack([descale(t10 + t3), descale(t11 + t2),
+                     descale(t12 + t1), descale(t13 + t0),
+                     descale(t13 - t0), descale(t12 - t1),
+                     descale(t11 - t2), descale(t10 - t3)], -1)
+
+
+def idct_islow(coefs: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """libjpeg's jpeg_idct_islow: quantized blocks [N, 64] (natural order)
+    and their table [64] -> samples [N, 8, 8] uint8."""
+    x = coefs.astype(np.int64).reshape(-1, 8, 8) * qt.reshape(8, 8)
+    ws = _idct_1d(np.swapaxes(x, 1, 2), 11)          # columns
+    out = _idct_1d(np.swapaxes(ws, 1, 2), 18)        # rows
+    v = out & 1023                                   # the range limit
+    v = np.where(v >= 512, v - 1024, v) + 128
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
+def _fancy_h(s: np.ndarray, width: int, h2v2: bool) -> np.ndarray:
+    """jdsample.c's horizontal doubling of rows `s` [R, dw] (int64; for
+    h2v2 the vertical column sums 3 near + far) -> [R, width]."""
+    r, dw = s.shape
+    out = np.empty((r, 2 * dw), np.int64)
+    if h2v2:
+        out[:, 0] = (s[:, 0] * 4 + 8) >> 4
+        out[:, 2::2] = (s[:, 1:] * 3 + s[:, :-1] + 8) >> 4
+        out[:, 1:-1:2] = (s[:, :-1] * 3 + s[:, 1:] + 7) >> 4
+        out[:, -1] = (s[:, -1] * 4 + 7) >> 4
+    else:
+        out[:, 0] = s[:, 0]
+        out[:, 2::2] = (s[:, 1:] * 3 + s[:, :-1] + 1) >> 2
+        out[:, 1:-1:2] = (s[:, :-1] * 3 + s[:, 1:] + 2) >> 2
+        out[:, -1] = s[:, -1]
+    return out[:, :width]
+
+
+def _upsample(plane: np.ndarray, rx: int, ry: int, height: int,
+              width: int) -> np.ndarray:
+    """A component's samples [dh, dw] at the image's size, as libjpeg's
+    upsampler gives them (fancy, or box where dw <= 2)."""
+    dh, dw = plane.shape
+    p = plane.astype(np.int64)
+    if rx == 1 and ry == 1:
+        return p[:height, :width]
+    if dw <= 2:
+        return np.repeat(np.repeat(p, ry, 0), rx, 1)[:height, :width]
+    if ry == 1:
+        return _fancy_h(p, width, False)[:height]
+    up = np.concatenate([p[:1], p[:-1]])             # the row above
+    down = np.concatenate([p[1:], p[-1:]])           # the row below
+    rows = np.empty((2 * dh, dw), np.int64)
+    rows[0::2] = p * 3 + up
+    rows[1::2] = p * 3 + down
+    return _fancy_h(rows[:height], width, True)
+
+
+def _ycc_rgb(y, cb, cr) -> np.ndarray:
+    """jdcolor.c's ycc_rgb_convert (SCALEBITS 16, its tables)."""
+    def fix(v):
+        return int(v * 65536 + 0.5)
+    x = np.arange(256, dtype=np.int64) - 128
+    cr_r = (fix(1.40200) * x + (1 << 15)) >> 16
+    cb_b = (fix(1.77200) * x + (1 << 15)) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + (1 << 15)
+    rgb = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16),
+                    y + cb_b[cb]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _scan_segments(data: bytes, pos: int):
+    """The entropy-coded bytes of the scan at `pos`, split at its restart
+    markers, each with the stuffed zero after 0xFF removed; and the
+    position of the marker that ends the scan."""
+    segments, start, p, n = [], pos, pos, len(data)
+    while p + 1 < n:
+        if data[p] == 0xFF and data[p + 1] != 0x00:
+            if 0xD0 <= data[p + 1] <= 0xD7:
+                segments.append(data[start:p])
+                start = p = p + 2
+                continue
+            if data[p + 1] == 0xFF:      # a fill byte before a marker
+                p += 1
+                continue
+            break
+        p += 1
+    segments.append(data[start:p])
+    return [s.replace(b"\xff\x00", b"\xff") for s in segments], p
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Baseline JPEG bytes -> [H, W, C] uint8 (C = 1, or 3 in RGB), the
+    bytes libjpeg gives; `name` labels the errors."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG file")
+    qts, dc, ac, comps = {}, {}, {}, []
+    frame, restart, jfif, adobe = None, 0, False, None
+    pos, n, scanned = 2, len(data), False
+    while True:
+        while pos < n and data[pos] != 0xFF:
+            pos += 1
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n or data[pos] == 0xD9:
+            break
+        m = data[pos]
+        pos += 1
+        if m == 0x01 or 0xD0 <= m <= 0xD7:
+            continue
+        length = struct.unpack(">H", data[pos:pos + 2])[0]
+        seg = data[pos + 2:pos + length]
+        pos += length
+        if m in _SOF_REFUSED:
+            raise unsupported(_SOF_REFUSED[m], name)
+        if m in (0xC0, 0xC1):
+            precision, h, w, nc = struct.unpack(">BHHB", seg[:6])
+            if precision != 8:
+                raise unsupported(4, name)
+            if nc not in (1, 3):
+                raise unsupported(5, name)
+            for i in range(nc):
+                cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
+                comps.append(dict(id=cid, h=hv >> 4 if nc > 1 else 1,
+                                  v=hv & 15 if nc > 1 else 1, tq=tq & 3))
+            frame = (h, w)
+            hmax = max(c["h"] for c in comps)
+            vmax = max(c["v"] for c in comps)
+            for c in comps:
+                if (hmax % c["h"] or vmax % c["v"]
+                        or (hmax // c["h"], vmax // c["v"])
+                        not in ((1, 1), (2, 1), (2, 2))):
+                    raise unsupported(6, name)
+            mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+            for c in comps:
+                c["dw"] = -(-w * c["h"] // hmax)
+                c["dh"] = -(-h * c["v"] // vmax)
+                c["coef"] = np.zeros((mcuy * c["v"], mcux * c["h"], 64),
+                                     np.int16)
+        elif m == 0xC4:
+            p = 0
+            while p < len(seg):
+                cls, th = seg[p] >> 4, seg[p] & 3
+                counts = list(seg[p + 1:p + 17])
+                symbols = list(seg[p + 17:p + 17 + sum(counts)])
+                (ac if cls else dc)[th] = _lookup(counts, symbols)
+                p += 17 + sum(counts)
+        elif m == 0xDB:
+            p = 0
+            while p < len(seg):
+                pq, tq = seg[p] >> 4, seg[p] & 3
+                size = 2 if pq else 1
+                vals = np.frombuffer(seg[p + 1:p + 1 + 64 * size],
+                                     ">u2" if pq else np.uint8)
+                q = np.zeros(64, np.int64)
+                q[ZIGZAG] = vals
+                qts[tq] = q
+                p += 1 + 64 * size
+        elif m == 0xDD:
+            restart = struct.unpack(">H", seg[:2])[0]
+        elif m == 0xE0 and seg[:5] == b"JFIF\x00":
+            jfif = True
+        elif m == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            adobe = seg[11]
+        elif m == 0xDA:
+            if frame is None:
+                raise ValueError(f"{name}: a scan before the frame header")
+            ns = seg[0]
+            sc = []
+            for i in range(ns):
+                cid, t = seg[1 + 2 * i:3 + 2 * i]
+                k = next(j for j, c in enumerate(comps) if c["id"] == cid)
+                sc.append((comps[k], dc[t >> 4 & 3], ac[t & 3]))
+            segments, pos = _scan_segments(data, pos)
+            _decode_scan(sc, segments, restart, frame, ns == 1)
+            scanned = True
+    if not scanned:
+        raise ValueError(f"{name}: no scan")
+    h, w = frame
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    planes = []
+    for c in comps:
+        bh, bw, _ = c["coef"].shape
+        blocks = idct_islow(c["coef"].reshape(-1, 64), qts[c["tq"]])
+        plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
+            bh * 8, bw * 8)[:c["dh"], :c["dw"]]
+        planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"], h, w))
+    if len(comps) == 1:
+        return planes[0].astype(np.uint8)[..., None]
+    if jfif:
+        rgb = False
+    elif adobe is not None:
+        rgb = adobe == 0
+    else:
+        rgb = [c["id"] for c in comps] == [82, 71, 66]
+    if rgb:
+        return np.stack(planes, -1).astype(np.uint8)
+    return _ycc_rgb(*planes)
+
+
+def _decode_scan(sc, segments, restart, frame, single):
+    """Huffman-decode one scan's blocks into its components' `coef`
+    (T.81 F.2.2, libjpeg's decode_mcu: DC predictors per component, reset
+    at each restart; past the data, zero bits)."""
+    h, w = frame
+    if single:
+        c = sc[0][0]
+        ux, uy = -(-c["dw"] // 8), -(-c["dh"] // 8)
+    else:
+        hmax = max(c["h"] for c, _, _ in sc)
+        vmax = max(c["v"] for c, _, _ in sc)
+        ux, uy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    layout = [(c, dct, act, 1 if single else c["h"], 1 if single else c["v"])
+              for c, dct, act in sc]
+    per = restart or ux * uy
+    for first in range(0, ux * uy, per):
+        seg = segments[first // per] if first // per < len(segments) else b""
+        d = seg + bytes(8)
+        limit = 8 * len(seg)
+        bitpos = 0
+        pred = [0] * len(sc)
+
+        def bits(k):
+            nonlocal bitpos
+            if k == 0:
+                return 0
+            b = bitpos >> 3
+            v = int.from_bytes(d[b:b + 4], "big") if b + 4 <= len(d) else 0
+            v = (v >> (32 - (bitpos & 7) - k)) & ((1 << k) - 1) \
+                if bitpos < limit else 0
+            bitpos += k
+            return v
+
+        def symbol(table):
+            nonlocal bitpos
+            b = bitpos >> 3
+            v = (int.from_bytes(d[b:b + 3], "big") >> (8 - (bitpos & 7))
+                 ) & 0xFFFF if bitpos < limit else 0
+            e = table[v]
+            if not e:
+                raise ValueError("corrupt JPEG data: no Huffman code")
+            bitpos += e >> 8
+            return e & 0xFF
+
+        for u in range(first, min(first + per, ux * uy)):
+            mx, my = u % ux, u // ux
+            for i, (c, dct, act, hh, vv) in enumerate(layout):
+                coef = c["coef"]
+                for by in range(vv):
+                    for bx in range(hh):
+                        blk = [0] * 64
+                        t = symbol(dct)
+                        diff = bits(t)
+                        if t and diff < (1 << (t - 1)):
+                            diff -= (1 << t) - 1
+                        pred[i] += diff
+                        blk[0] = pred[i]
+                        k = 1
+                        while k < 64:
+                            rs = symbol(act)
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                k += r
+                                v = bits(s)
+                                if v < (1 << (s - 1)):
+                                    v -= (1 << s) - 1
+                                blk[NATURAL[k]] = v
+                            elif r != 15:
+                                break
+                            else:
+                                k += 15
+                            k += 1
+                        coef[my * vv + by, mx * hh + bx] = np.array(
+                            blk, np.int64).astype(np.int16)

@@ -1,12 +1,16 @@
 """PNG encode and decode with the standard library (zlib) and numpy.
 
 The JAX package decodes images with its native codec (libpng) or PIL
-(langsplat4d/data/readers.py:60-81); the port depends on neither. The decoder
-reads 8-bit grey, grey + alpha, RGB and RGBA images, not interlaced, with
-any of the five scanline filters per row. None and Up are numpy over the
-whole row, Sub a cumulative sum modulo 256 per channel; Average and Paeth
-depend on the decoded left neighbour, so they walk the row byte by byte.
-Interlaced (Adam7), 16-bit and palette images raise NotImplementedError.
+(langsplat4d/data/readers.py:60-81); the port depends on neither. The
+decoder reads 8-bit grey, grey + alpha, RGB and RGBA images, not
+interlaced, with any of the five scanline filters per row: `inflate_png`
+parses the chunks and inflates the image data, `unfilter_rows` undoes the
+filters. The readers undo them in the port's codec (data/codec.py,
+csrc/imgcodec.cpp); `unfilter_rows` is its plain twin, which the tests hold
+it to: None and Up are numpy over the whole row, Sub a cumulative sum
+modulo 256 per channel, and Average and Paeth, which depend on the decoded
+left neighbour, walk the row byte by byte. Interlaced (Adam7), 16-bit and
+palette images raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -26,6 +30,33 @@ def png_chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
+def _filtered_rows(img: np.ndarray):
+    """The image's rows [H, W * C] (int32) under each of the five forward
+    filters of the PNG specification, taken on the image's own bytes:
+    [5, H, W * C], each entry modulo 256."""
+    h, w = img.shape[:2]
+    bpp = img.shape[2] if img.ndim == 3 else 1
+    line = img.reshape(h, w * bpp).astype(np.int32)
+    prev = np.pad(line, ((1, 0), (0, 0)))[:-1]
+    left = np.pad(line, ((0, 0), (bpp, 0)))[:, :-bpp]
+    upleft = np.pad(prev, ((0, 0), (bpp, 0)))[:, :-bpp]
+    p = left + prev - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, prev, upleft))
+    return np.stack([line, line - left, line - prev,
+                     line - ((left + prev) >> 1), line - paeth]) % 256
+
+
+def adaptive_filters(img: np.ndarray) -> np.ndarray:
+    """The filter of each row as libpng's adaptive choice picks it (and
+    PIL, cv2 and ffmpeg write through it): the one whose filtered bytes,
+    read as signed, have the least sum of absolute values, the lower filter
+    on a tie. [H] uint8, for `png_bytes(img, adaptive_filters(img))`."""
+    cand = _filtered_rows(img)
+    return np.minimum(cand, 256 - cand).sum(2).argmin(0).astype(np.uint8)
+
+
 def png_bytes(img: np.ndarray, filters=0) -> bytes:
     """Encode an [H, W] or [H, W, C] uint8 image (C = 1 to 4) as PNG with
     scanline filter `filters` on every row, or `filters[y]` on row y: 0
@@ -33,21 +64,14 @@ def png_bytes(img: np.ndarray, filters=0) -> bytes:
     filters, taken on the image's own bytes)."""
     h, w = img.shape[:2]
     bpp = img.shape[2] if img.ndim == 3 else 1
-    line = img.reshape(h, w * bpp).astype(np.int32)
     ft = np.broadcast_to(np.asarray(filters, np.uint8), (h,))
     if ft.any():
-        prev = np.pad(line, ((1, 0), (0, 0)))[:-1]
-        left = np.pad(line, ((0, 0), (bpp, 0)))[:, :-bpp]
-        upleft = np.pad(prev, ((0, 0), (bpp, 0)))[:, :-bpp]
-        p = left + prev - upleft
-        pa, pb, pc = (np.abs(p - left), np.abs(p - prev),
-                      np.abs(p - upleft))
-        paeth = np.where((pa <= pb) & (pa <= pc), left,
-                         np.where(pb <= pc, prev, upleft))
-        line = line - np.choose(ft[:, None], [np.zeros_like(line), left,
-                                              prev, (left + prev) >> 1,
-                                              paeth])
-    raw = np.concatenate([ft[:, None], (line % 256).astype(np.uint8)], 1)
+        line = np.take_along_axis(_filtered_rows(img),
+                                  ft[None, :, None].astype(np.int64),
+                                  0)[0]
+    else:
+        line = img.reshape(h, w * bpp)
+    raw = np.concatenate([ft[:, None], line.astype(np.uint8)], 1)
     color_type = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
     return (SIGNATURE
             + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
@@ -82,9 +106,9 @@ def _paeth_row(line: bytes, prev: bytes, bpp: int) -> bytearray:
     return out
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG bytes -> [H, W, C] uint8 (C = 1, 2, 3 or 4). `name` labels the
-    errors."""
+def inflate_png(data: bytes, name: str = "<bytes>"):
+    """PNG bytes -> (the inflated rows [H, 1 + W * C] uint8, each a filter
+    byte and the row's filtered bytes; W; C). `name` labels the errors."""
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     pos, header, idat = 8, None, []
@@ -108,12 +132,18 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if color_type not in CHANNELS:
         raise NotImplementedError(f"{name}: PNG colour type {color_type}")
     bpp = CHANNELS[color_type]
-    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
+    if raw.size != h * (w * bpp + 1):
         raise ValueError(f"{name}: {raw.size} bytes of image data for "
                          f"{w}x{h}x{bpp}")
-    rows = raw.reshape(h, stride + 1)
+    return raw.reshape(h, w * bpp + 1), w, bpp
+
+
+def unfilter_rows(rows: np.ndarray, w: int, bpp: int,
+                  name: str = "<bytes>") -> np.ndarray:
+    """Undo the scanline filters of `inflate_png`'s rows -> [H, W, C]
+    uint8 (the plain twin of the codec's ls4d_png_unfilter)."""
+    h, stride = rows.shape[0], w * bpp
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -136,6 +166,13 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         out[y] = cur
         prev = out[y]
     return out.reshape(h, w, bpp)
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> [H, W, C] uint8 (C = 1, 2, 3 or 4) through the plain
+    twin. `name` labels the errors."""
+    rows, w, bpp = inflate_png(data, name)
+    return unfilter_rows(rows, w, bpp, name)
 
 
 def read_png(path: str) -> np.ndarray:

@@ -12,17 +12,17 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from langsplat4d_torch.data.cameras import HostCamera
-from langsplat4d_torch.data.readers import (CameraInfo, SceneInfo,
-                                            add_points, load_image,
-                                            read_hyper_scene)
+from langsplat4d_torch.data.panoptic import (PanopticCamera,
+                                             read_panoptic_scene)
+from langsplat4d_torch.data.readers import (SCENE_LOAD_CALLBACKS, CameraInfo,
+                                            SceneInfo, add_points,
+                                            load_image)
 
 # marker file -> dataset type, checked in this order (scene/__init__.py:46-66)
 MARKERS = (("sparse", "colmap"), ("transforms_train.json", "blender"),
            ("poses_bounds.npy", "dynerf"), ("dataset.json", "nerfies"),
            ("train_meta.json", "PanopticSports"),
            ("points3D_multipleview.ply", "MultipleView"))
-# dataset type -> reader; the others are not ported yet
-READERS = {"nerfies": read_hyper_scene}
 
 
 def sniff_dataset_type(source_path: str) -> str:
@@ -46,6 +46,8 @@ class CameraDataset:
 
     def __getitem__(self, index: int) -> HostCamera:
         item = self.dataset[index]
+        if isinstance(item, PanopticCamera):
+            return item
         if isinstance(item, HostCamera):
             # readers that build HostCameras get the dataset index as
             # colmap_id, as FourDGSdataset stamps it (scene/dataset.py:41-47)
@@ -79,16 +81,19 @@ class Scene:
                  eval_split: bool = True, llffhold: int = 8,
                  white_background: bool = True, extension: str = ".png",
                  add_random_points: bool = False, model_path: str = ""):
-        # the JAX package's signature; these select among the readers that
-        # are not ported yet (COLMAP, Blender)
-        del images, eval_split, llffhold, white_background, extension
         self.model_path = model_path
         dataset_type = sniff_dataset_type(source_path)
-        if dataset_type not in READERS:
-            raise NotImplementedError(
-                f"the {dataset_type} scene reader is not ported yet "
-                f"({source_path})")
-        info = READERS[dataset_type](source_path)
+        if dataset_type == "colmap":
+            info = SCENE_LOAD_CALLBACKS["Colmap"](source_path, images,
+                                                  eval_split, llffhold)
+        elif dataset_type == "blender":
+            info = SCENE_LOAD_CALLBACKS["Blender"](source_path,
+                                                   white_background,
+                                                   eval_split, extension)
+        elif dataset_type == "PanopticSports":
+            info = read_panoptic_scene(source_path)
+        else:            # dynerf, nerfies, MultipleView
+            info = SCENE_LOAD_CALLBACKS[dataset_type](source_path)
         self.dataset_type = dataset_type
         self.scene_info: SceneInfo = info
         self.maxtime = info.maxtime

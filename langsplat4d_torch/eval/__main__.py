@@ -97,17 +97,15 @@ def decode_levels(model, sem: torch.Tensor) -> torch.Tensor:
 def read_frame(path: str):
     """The annotated frame as [H, W, 3] float RGB for the composites, or
     None where there is no file (the reference's cv2.imread gives None).
-    The port reads PNG only."""
+    PNG or baseline JPEG through the port's codec; a grey frame is spread
+    over the three channels, as cv2.imread's colour mode does."""
     if not os.path.exists(path):
         return None
-    with open(path, "rb") as f:
-        head = f.read(8)
-    if head != b"\x89PNG\r\n\x1a\n":
-        raise NotImplementedError(
-            f"{path}: only PNG frames are read (no JPEG decoder in the "
-            f"port)")
-    from langsplat4d_torch.data.png import read_png
-    return (read_png(path)[..., :3] / 255.0).astype(np.float32)
+    from langsplat4d_torch.data.codec import read_image
+    img = read_image(path)
+    if img.shape[2] < 3:
+        img = img[..., :1].repeat(3, 2)
+    return (img[..., :3] / 255.0).astype(np.float32)
 
 
 def main(argv=None):

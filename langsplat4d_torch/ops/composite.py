@@ -77,15 +77,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from langsplat4d_torch.utils import build
 
 HDR = 8
 ALPHA_MIN = 1.0 / 255.0
@@ -155,39 +155,24 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of kernel `name` is cached: keyed by a hash of its
     source, the shared header and the flags."""
-    digest = hashlib.sha256(
-        kernel_source(name).read_bytes() + COMMON_HEADER.read_bytes()
-        + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+    return build.keyed_path(BUILD_DIR, name, kernel_source(name).read_bytes(),
+                            COMMON_HEADER.read_bytes(),
+                            " ".join(NVCC_FLAGS).encode())
 
 
 def build_libraries(names=KERNELS) -> Dict[str, Path]:
     """Compile the named kernel sources into shared libraries, one nvcc per
-    source, all started together; cached ones are not rebuilt. Returns their
-    paths. The compiler's output (the ptxas figures) is kept beside each
-    library as `<library>.log`."""
+    source, all started together (utils/build.py: keyed, atomic, locked);
+    cached ones are not rebuilt. Returns their paths. The compiler's output
+    (the ptxas figures) is kept beside each library as `<library>.log`."""
     libs = {name: library_path(name) for name in names}
-    procs = {}
-    for name, lib in libs.items():
-        if lib.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(kernel_source(name))]
-        procs[name] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (cmd, tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{out}")
-            continue
-        libs[name].with_suffix(".log").write_text(out)
-        os.replace(tmp, libs[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    build.build({lib: functools.partial(_nvcc_command, name)
+                 for name, lib in libs.items()}, log=True)
     return libs
+
+
+def _nvcc_command(name: str, out: Path):
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, kernel_source(name)]
 
 
 def ptxas_report(name: str) -> str:

@@ -130,25 +130,11 @@ def build_batch(cams: Sequence, cfg: Config, scene: Scene, iteration: int,
                     st.st_mtime_ns, st.st_size, c.image_resize, c.image_filt)
         return ("img", c.image_name, split, image_fingerprint(c.image))
 
-    def upload(key, make):
-        """The cached tensors under `key`, else those of the host arrays
-        that `make()` builds (only on a miss: a hit decodes nothing)."""
-        hit = cache.peek(key) if cache is not None else None
-        if hit is not None:
-            return hit
-        if cache is None:
-            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                         for a in make())
-        return cache.put(key, make())
-
-    imgs = [upload(image_key(c), lambda c=c: (_encode_image(c.image),))[0]
-            for c in cams]
-    if any(t.dtype == torch.uint8 for t in imgs) and any(
-            t.dtype != torch.uint8 for t in imgs):
-        # mixed encodings in one batch: decode the uint8 ones (exactly)
-        imgs = [t.to(torch.float32) / 255.0 if t.dtype == torch.uint8
-                else t for t in imgs]
+    img_jobs = [(image_key(c), lambda c=c: (_encode_image(c.image),))
+                for c in cams]
     if not need_lang:
+        imgs = _mixed_as_float(
+            [t[0] for t in _cached_or_made(img_jobs, cache, device)])
         return PackedPayload(packed, tuple(imgs), None, None)
 
     lf_path = cfg.model.lf_path
@@ -174,30 +160,47 @@ def build_batch(cams: Sequence, cfg: Config, scene: Scene, iteration: int,
         return s, np.pad(t, ((0, s_pad - t.shape[0]), (0, 0)))
 
     lang_key = ("lang", lf_path, split, cfg.model.feature_level, True)
-    pairs: List = [None] * len(cams)
-    miss = []
-    for i, c in enumerate(cams):
-        hit = (cache.peek(lang_key + (c.image_name,))
-               if cache is not None else None)
-        if hit is not None:
-            pairs[i] = hit
-        else:
-            miss.append(i)
-    if len(miss) > 1:       # the .npy loads of several cameras overlap
-        with ThreadPoolExecutor(max_workers=min(4, len(miss))) as ex:
-            built = list(ex.map(lambda i: lang_host(cams[i]), miss))
-    else:
-        built = [lang_host(cams[i]) for i in miss]
-    for i, arrays in zip(miss, built):
-        if cache is None:
-            pairs[i] = tuple(torch.from_numpy(a).to(device) for a in arrays)
-        else:
-            pairs[i] = cache.put(lang_key + (cams[i].image_name,), arrays)
+    got = _cached_or_made(
+        img_jobs + [(lang_key + (c.image_name,), lambda c=c: lang_host(c))
+                    for c in cams], cache, device)
+    imgs = _mixed_as_float([t[0] for t in got[:len(cams)]])
+    pairs = got[len(cams):]
     segs = [p[0] for p in pairs]
     if any(s.dtype != torch.int16 for s in segs):
         segs = [s.to(torch.int32) for s in segs]   # >32k-segment frames
     return PackedPayload(packed, tuple(imgs), tuple(segs),
                          tuple(p[1] for p in pairs))
+
+
+def _cached_or_made(jobs, cache, device) -> List[Tuple[torch.Tensor, ...]]:
+    """The device tensors of each (key, make) job: the GT cache's entry
+    under `key`, else `make()`'s host arrays uploaded (and put, where there
+    is a cache). A hit makes nothing; several misses are made together on a
+    pool of up to 4 threads (the image codec, zlib and .npy reads release
+    the interpreter lock), so a batch's image decodes and language loads
+    overlap."""
+    out = [cache.peek(key) if cache is not None else None for key, _ in jobs]
+    miss = [i for i, hit in enumerate(out) if hit is None]
+    if len(miss) > 1:
+        with ThreadPoolExecutor(max_workers=min(4, len(miss))) as ex:
+            made = list(ex.map(lambda i: jobs[i][1](), miss))
+    else:
+        made = [jobs[i][1]() for i in miss]
+    for i, arrays in zip(miss, made):
+        out[i] = (cache.put(jobs[i][0], arrays) if cache is not None else
+                  tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                        for a in arrays))
+    return out
+
+
+def _mixed_as_float(imgs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Mixed encodings in one batch: the uint8 ones decoded (exactly) to
+    float32."""
+    if any(t.dtype == torch.uint8 for t in imgs) and any(
+            t.dtype != torch.uint8 for t in imgs):
+        return [t.to(torch.float32) / 255.0 if t.dtype == torch.uint8
+                else t for t in imgs]
+    return imgs
 
 
 def init_state_from_scene(cfg: Config, scene: Scene, seed: int = 0,

@@ -332,8 +332,11 @@ def test_coco_annotations_match_jax(tmp_path):
 
 def test_visualize_reads_png_frames_and_refuses_jpeg(tmp_path):
     """`--visualize_results` reads the annotated frame through the port's
-    PNG decoder; a JPEG raises, naming the file; a missing file gives None,
-    as the reference's cv2.imread does."""
+    codec; a JPEG it does not decode (progressive) raises, naming the file
+    (baseline JPEG frames: tests/test_torch_codec.py
+    ::test_eval_reads_jpeg_frames_as_cv2); a missing file gives None, as
+    the reference's cv2.imread does."""
+    from PIL import Image
     from langsplat4d_torch.data.png import png_bytes
     from langsplat4d_torch.eval.__main__ import read_frame
     img = np.random.default_rng(12).integers(0, 256, (6, 7, 3), np.uint8)
@@ -342,7 +345,7 @@ def test_visualize_reads_png_frames_and_refuses_jpeg(tmp_path):
     np.testing.assert_array_equal(read_frame(str(png)),
                                   (img / 255.0).astype(np.float32))
     jpg = tmp_path / "00002_png.rf.1.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+    Image.fromarray(img).save(jpg, progressive=True)
     with pytest.raises(NotImplementedError, match="00002_png.rf.1.jpg"):
         read_frame(str(jpg))
     assert read_frame(str(tmp_path / "missing.jpg")) is None

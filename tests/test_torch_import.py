@@ -22,6 +22,10 @@ SLICE = (
     "langsplat4d_torch.data.cameras",
     "langsplat4d_torch.data.png",
     "langsplat4d_torch.data.jpeg",
+    "langsplat4d_torch.data.resample",
+    "langsplat4d_torch.data.codec",
+    "langsplat4d_torch.data.colmap",
+    "langsplat4d_torch.data.panoptic",
     "langsplat4d_torch.data.readers",
     "langsplat4d_torch.data.scene",
     "langsplat4d_torch.data.prefetch",
@@ -67,6 +71,8 @@ SLICE = (
     "langsplat4d_torch.eval.colormaps",
     "langsplat4d_torch.eval.evaluate",
     "langsplat4d_torch.eval.__main__",
+    "langsplat4d_torch.preprocess",
+    "langsplat4d_torch.preprocess.preprocess_neu3d",
 )
 # libraries a GPU host may lack: the port imports none of them
 HOST_LACKS = ("cv2", "PIL", "matplotlib", "sklearn")
@@ -115,7 +121,8 @@ def test_port_imports_no_cv2_pil_matplotlib_or_sklearn():
     """In a clean interpreter whose import system refuses jax, flax, the
     JAX package, cv2, PIL, matplotlib and sklearn: every module of the port
     imports, the AE and the eval CLI among them (the two plot helpers import
-    matplotlib only when called)."""
+    matplotlib only when called), and `load_image` decodes a PNG and a JPEG
+    and resizes them through the port's codec."""
     refused = ("jax", "jaxlib", "flax", "langsplat4d") + HOST_LACKS
     code = textwrap.dedent(f"""
         import sys
@@ -127,6 +134,21 @@ def test_port_imports_no_cv2_pil_matplotlib_or_sklearn():
 
         sys.meta_path.insert(0, Refuse())
     """) + "".join(f"import {m}\n" for m in SLICE) + textwrap.dedent(f"""
+        import os, tempfile
+        import numpy as np
+        from langsplat4d_torch.data.jpeg import jpeg_bytes
+        from langsplat4d_torch.data.png import png_bytes
+        from langsplat4d_torch.data.readers import load_image
+        img = (np.arange(12 * 10 * 3) % 251).astype(np.uint8).reshape(
+            12, 10, 3)
+        d = tempfile.mkdtemp()
+        for name, data in (("a.png", png_bytes(img, 4)),
+                           ("a.jpg", jpeg_bytes(img, 95))):
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(data)
+            out = load_image(os.path.join(d, name), resize=(5, 6),
+                             filt="lanczos")
+            assert out.shape == (3, 6, 5) and out.dtype == np.float32
         bad = sorted(m for m in sys.modules if m.split(".")[0] in {refused!r})
         assert not bad, bad
         print("ok")

@@ -186,6 +186,35 @@ def test_build_batch_cache_hit_decodes_nothing(runs, tmp_path):
     assert again.imgs[0] is first.imgs[0]
 
 
+def test_build_batch_decodes_misses_on_a_pool(runs, monkeypatch):
+    """The misses of a batch decode on the pool (several threads, each
+    image once) into the same bytes; hits are not decoded again."""
+    import threading
+    import time
+    from langsplat4d_torch.data import gt_cache, readers
+    gt_cache.get_cache(runs["tcfg"].runtime.gt_cache_mb, "cpu").clear()
+    whole, calls = readers.load_image, []
+
+    def slow(path, *a, **k):
+        calls.append((path, threading.get_ident()))
+        time.sleep(0.05)              # overlap the decodes
+        return whole(path, *a, **k)
+    monkeypatch.setattr(readers, "load_image", slow)
+    cams = list(Scene(runs["root"]).getTrainCameras())
+    assert len(cams) >= 2
+    got = tloop.build_batch(cams, runs["tcfg"], runs["tscene"], 1, "cpu",
+                            need_lang=False)
+    assert sorted(p for p, _ in calls) == sorted(c.image_path for c in cams)
+    assert len({t for _, t in calls}) > 1
+    for c, t in zip(cams, got.imgs):
+        np.testing.assert_array_equal(
+            t.numpy(), np.rint(c.image * 255).astype(np.uint8))
+    fresh = list(Scene(runs["root"]).getTrainCameras())
+    tloop.build_batch(fresh, runs["tcfg"], runs["tscene"], 2, "cpu",
+                      need_lang=False)
+    assert len(calls) == len(cams)
+
+
 def _j_render(jstate, jd, cam, t):
     js = JR.RasterSettings(HW, HW, sh_degree=3, lang_dim=3,
                            tile_capacity=128, composite_chunk=128,

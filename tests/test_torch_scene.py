@@ -5,8 +5,9 @@ names, ids), the extent, the AABB and the point cloud, every decoded image,
 every compact language pair and every gathered language map, and the
 samplers' order for one seed. Everything is compared exactly: the same
 bytes decode to the same float32 values (k / 255), and the rest is the same
-host arithmetic. Also: the format sniffing on each marker, and
-NotImplementedError for a format whose reader is not ported."""
+host arithmetic. Also: the format sniffing on each marker, and both
+packages refusing a directory that holds a marker and nothing else alike
+(the other formats' readers: tests/test_torch_readers.py)."""
 import os
 
 import numpy as np
@@ -110,9 +111,11 @@ def test_sniff_each_marker(marker, kind, tmp_path):
         path.mkdir()
     assert TS.sniff_dataset_type(str(tmp_path)) == kind
     assert JS.sniff_dataset_type(str(tmp_path)) == kind
-    if kind != "nerfies":
-        with pytest.raises(NotImplementedError, match=kind):
-            TS.Scene(str(tmp_path))
+    # every reader is ported: a marker alone fails in both packages alike
+    with pytest.raises(Exception) as j_err:
+        JS.Scene(str(tmp_path))
+    with pytest.raises(type(j_err.value)):
+        TS.Scene(str(tmp_path))
 
 
 def test_sniff_unknown(tmp_path):
