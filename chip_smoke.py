@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare NAME=TREE [--compare ...] [--rounds 3]
-    python3 chip_smoke.py --only 25,26,27
+    python3 chip_smoke.py --only 25,26,27,28
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 With --compare it checks nothing and only times the six kernels of this
@@ -135,8 +135,8 @@ Phases, each failing the run on error:
      seeded 4096-d VAE decoder on a seeded [536, 960, 6] map);
  24. scripts/train_eval.sh's flow through the port's CLIs on that scene:
      `python -m langsplat4d_torch.train` (phase A: the preset at full
-     width, half of phase 20's stage budgets (CLI_STAGE_ITERS) with its
-     densification cuts, fine-lang 0, a checkpoint at fine-base's
+     width, a third of phase 20's stage budgets (CLI_STAGE_ITERS) with
+     its densification cuts, fine-lang 0, a checkpoint at fine-base's
      last iteration, the render-process snapshots, the debug grid and the
      viewer bridge answering one request; phase B: the discrete
      fine-lang-discrete stage resumed from that checkpoint, cut to 200
@@ -155,11 +155,12 @@ Phases, each failing the run on error:
      and the twins' ms per 1352x1014 frame (a PNG of Paeth rows, one of
      adaptive rows, a JPEG, a lanczos resample from 2704x2028);
  26. Neu3D at full width through the CLIs: a dynerf scene of 6 cameras x
-     30 frames at the reader's 1352x1014 (adaptive-filter PNGs rendered
+     20 frames at the reader's 1352x1014 (adaptive-filter PNGs rendered
      from phase 3's 200k Gaussians with Neu3D's deformation, 100k initial
      points, 3-d language ground truth under the names the loader asks
      for), `python -m langsplat4d_torch.train` with configs/neu3d/default.py
-     at full width (batch 4) and phase 20's depth cuts, `.render --mode
+     at full width (batch 4) at 200/60/200/60 iterations with phase 20's
+     densification cuts, `.render --mode
      lang` over the test split (frame 0 held against the plain version on
      its rows), `.eval --dataset_type neu3d` on test_lang; it/s per stage,
      decode ms a frame, the batch build on misses against hits, and
@@ -169,18 +170,40 @@ Phases, each failing the run on error:
      `training(cfg)` (kernels 1 and 2 must launch, the loss finite), and a
      PanopticSports scene (JPEG frames, an off-centre principal point) read
      and rendered through `render_set` and kernel 3, frame 0 held against
-     the plain version.
+     the plain version;
+ 28. (run after 24) the multi-rank path, langsplat4d_torch/parallel/, with
+     its ranks spawned on this one card under gloo (NCCL refuses two ranks
+     on one device; they take turns on the card, so nothing here is a
+     speed-up): kernel 3 in tile-row bands (`tile_row0`) on synthetic
+     streams against its plain version and bit-equal to the whole image's
+     launch; the bench workload's first 10 frames through render_set with
+     gaussian_shards 2 and 3 (an uneven 11/11/10 split of 32 tile rows) in
+     both exchanges, rank 0's stitched frames bit-equal to the one-process
+     render_set's, kernel 3 launched once a band a frame and its first
+     band held against the plain version, per-rank ms a frame by stage,
+     the bytes each rank sends and its peak memory; both exchanges on a
+     world of one rank under NCCL, bit-equal; phase 8's step workload with
+     two cameras on a data 2 x gauss 2 mesh for 20 steps, after each the
+     gathered parameters and Adam moments held against the one-process
+     step (rtol 2e-3 / atol 2e-4 of each leaf's largest entry), kernels 1
+     and 2 of the first step against their plain versions, then densify
+     and prune under the mesh against one process; last, the train CLI
+     under `torch.distributed.run` on 2 ranks with gaussian_shards 2 on
+     phase 19's scene (MESH_CLI_ITERS), and the render CLI on 2 ranks,
+     every frame bit-equal to the one-process render CLI's.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
 phase 20's loop as `loop_launches`, in phase 23's render as
-`eval_launches`, in phase 24's CLIs as `cli_launches` and in phase 26's as
-`neu3d_launches`), the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX or of the JAX
-package. `--only 25,26,27` runs the build and those phases alone (26 with
-19 and 22) and prints no kernels line.
+`eval_launches`, in phase 24's CLIs as `cli_launches`, in phase 26's as
+`neu3d_launches`, and in phase 28's bands as `band_launches` and sharded
+steps as `mesh_launches`, summed over the ranks), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
+of JAX or of the JAX package. `--only 25,26,27,28` runs the build and those
+phases alone (26 and 28 with 19 and 22) and prints no kernels line.
 """
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import importlib.util
@@ -1209,7 +1232,10 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     rows, bounds, g_out, total = (ker[k] for k in
                                   ("rows", "bounds", "g_out", "total"))
     stats = {}
-    plain_out = fwd_plain(rows, bounds, bg, stats=stats, **kw)
+    # the plain versions take seconds: each is timed on one call, the one
+    # whose result is used (no warm-up)
+    fp_ms, plain_out = once_ms(lambda: fwd_plain(rows, bounds, bg,
+                                                 stats=stats, **kw))
     pairs, live = stats["pair_pixels"], stats["live_pair_pixels"]
     f_pairs = pairs           # what the forward's bound charges
     if not stream:
@@ -1244,9 +1270,8 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
                     + t_n * 256 * 4 + rows.numel() * 4,
                     backward_ops(pairs, live, c))
     f_ms = time_ms(lambda: fwd(rows, bounds, bg, **kw), 20)
-    fp_ms = time_ms(lambda: fwd_plain(rows, bounds, bg, **kw), 1)
     b_ms = time_ms(lambda: bwd(rows, bounds, g_out, total, **kw), 20)
-    bp_ms = time_ms(lambda: bwd_plain(rows, bounds, g_out, total, **kw), 1)
+    bp_ms, _ = once_ms(lambda: bwd_plain(rows, bounds, g_out, total, **kw))
     print(f"[{p_time}] step 1 rows {list(rows.shape)}, {f_pairs} evaluated "
           f"pair-pixels of which {live} live, {c} channels: forward kernel "
           f"{f_ms:.3f} ms (bound {f_bound[0]:.4f} by {f_bound[1]}: "
@@ -2396,10 +2421,11 @@ def eval_phase(dev, root, ae_ckpt, frames=EVAL_FRAMES, prompts=EVAL_PROMPTS,
 # the reference (train.py:441), cut as tests/test_e2e.py:145-157 cuts it;
 # the Gaussians whose K-Means the plain version checks
 DISCRETE_ITERS = 200
-# phase A's stage budgets: half of phase 20's (coarse-base, coarse-lang,
-# fine-base; 300/100/300 until phase 26 came), which keeps the four runs
-# of the snapshots' turns inside the script's time
-CLI_STAGE_ITERS = (150, 50, 150, 50)
+# phase A's stage budgets: a third of phase 20's (coarse-base, coarse-lang,
+# fine-base; 300/100/300 until phase 26 came, 150/50/150 until phase 28
+# came), which keeps the four runs of the snapshots' turns inside the
+# script's time
+CLI_STAGE_ITERS = (100, 40, 100, 40)
 KMEANS_PLAIN_ROWS = 256
 def free_port():
     """A TCP port on 127.0.0.1 that nothing listens on now."""
@@ -3405,6 +3431,15 @@ def aten_grid_sample_2d(plane, coords):
 
 
 
+def once_ms(fn):
+    """(ms, result) of one call of fn, the device synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -4011,9 +4046,14 @@ def write_panoptic_scene(root, dev, workload, n_cams=4, frames=2,
 
 
 # phase 26: Neu3D at full width through the CLIs
-NEU3D_CAMS, NEU3D_FRAMES = 6, 30
+# phase 20's stage budgets cut to 200/60/200/60 and 20 frames a camera (30
+# until phase 28 came: the script needed its time); densify, prune and the
+# opacity reset still fire at 200 in both base stages
+NEU3D_CAMS, NEU3D_FRAMES = 6, 20
+NEU3D_STAGE_ITERS = (200, 60, 200, 60)
 CACHE_TURNS_MB = (4096, 256, 256, 4096)   # the default, and ~60 of 180 frames
-CACHE_TURN_ITERS, CACHE_TURN_TIMED = 70, 25
+# 70 / 25 until phase 28 came: the script needed its time
+CACHE_TURN_ITERS, CACHE_TURN_TIMED = 40, 15
 
 
 class DecodeTimer:
@@ -4072,16 +4112,16 @@ def neu3d_config_file(root, hidden=None):
 
 def neu3d_phase(dev, root, ae_ckpt, workload=None, downsample=1.0,
                 cams=NEU3D_CAMS, frames=NEU3D_FRAMES, n_init=100_000,
-                iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None,
+                iters=NEU3D_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None,
                 turn_iters=CACHE_TURN_ITERS, turn_timed=CACHE_TURN_TIMED):
     """Phase 26: Neu3D through the port's CLIs. `write_dynerf_scene` in
     `root` from phase 3's 200k seeded Gaussians with Neu3D's deformation
-    (`workload`, else bench_workload's), 6 cameras x 30 frames at the
+    (`workload`, else bench_workload's), NEU3D_CAMS x NEU3D_FRAMES at the
     reader's fixed 1352x1014; read back through the port's Scene by a path
     relative to the checkout (the reader cuts the image directory at the
     path's first dot, queue 3). `python -m langsplat4d_torch.train` with
-    configs/neu3d/default.py at full width (batch 4), phase 20's depth
-    cuts: it/s per stage, the decode ms a frame (load_image) and the batch
+    configs/neu3d/default.py at full width (batch 4), NEU3D_STAGE_ITERS
+    with phase 20's densification cuts: it/s per stage, the decode ms a frame (load_image) and the batch
     build's ms an image on the first epoch's misses against cached hits.
     `.render --mode lang` over the test split, frame 0 held against the
     plain kernel on its rows; `.eval --dataset_type neu3d` on test_lang
@@ -4377,15 +4417,694 @@ def formats_phase(dev, root, iters=5, hw=(48, 64), n=20_000, net_width=None):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 28: the multi-rank path (langsplat4d_torch/parallel/): tile-band
+# rendering in both exchanges and the data x gauss-sharded step, the ranks
+# spawned on the one card with gloo (NCCL refuses two ranks on one device);
+# the ranks take turns on the card, so no number here is a speed-up
+
+BAND_SHARDS = (2, 3)        # 32 tile rows at 32 px: 16 + 16, 11 + 11 + 10
+BAND_FRAMES = 10
+BAND_TIMED = 3              # frames timed stage by stage after render_set
+MESH_SHAPE = (2, 2)         # data x gauss
+MESH_STEPS = 20
+# the train CLI on two ranks: a further cut of phase 24's depth (at
+# 60/20/60/20 it took a third of the phase); densify and prune fire at 10
+# and 20 and the opacity reset at 15 in both base stages
+MESH_CLI_ITERS = (20, 10, 20, 10)
+MESH_CLI_CUTS = dict(densify_from_iter=5, densification_interval=10,
+                     pruning_from_iter=5, pruning_interval=10,
+                     min_points_for_prune=50_000, opacity_reset_interval=15)
+RANK_TIMEOUT = 600          # seconds a spawned group or a collective waits
+
+
+def band_cases():
+    """(tile_size, hard_cutoffs, height, width, pw, bands) cases of kernel
+    3 in bands: even and uneven splits, a last band cut by the image's edge
+    and, at 5 tile rows over 4 bands, an empty band."""
+    return [(32, True, 100, 150, 16, 2), (32, True, 100, 150, 16, 3),
+            (16, True, 80, 64, 16, 4), (16, False, 100, 150, 24, 3),
+            (32, False, 72, 110, 32, 2)]
+
+
+def compare_band_case(ts, hard, h, w, pw, bands, device, seed=0):
+    """Kernel 3 on each band of a synthetic stream (`tile_row0`) against its
+    plain version on the band, and against the same rows of the kernel's
+    whole-image launch -> (max abs error vs plain, whether every band is
+    bit-equal to the whole image's rows)."""
+    from langsplat4d_torch.ops.composite import (composite_stream,
+                                                 composite_stream_plain)
+    g = torch.Generator().manual_seed(seed)
+    tx, ty = -(-w // ts), -(-h // ts)
+    rows, starts = synthetic_stream(tx, ty, ts, case_segments(tx * ty, g), g,
+                                    pw=pw)
+    rows, starts = rows.to(device), starts.to(device)
+    bg = torch.tensor([0.2, 0.5, 0.8], device=device)
+    whole = composite_stream(rows, starts, bg, tiles_x=tx, tiles_y=ty,
+                             tile_size=ts, height=h, width=w,
+                             hard_cutoffs=hard)
+    band_rows = -(-ty // bands)
+    err, equal = 0.0, True
+    for b in range(bands):
+        ty0 = b * band_rows
+        height = max(0, min(band_rows * ts, h - ty0 * ts))
+        t0, t1 = min(ty0, ty) * tx, min(ty0 + band_rows, ty) * tx
+        seg = starts[t0:t1 + 1].long()
+        # the band's tiles past the image's last row have empty segments
+        st = torch.cat([seg, seg[-1:].expand(band_rows * tx - (t1 - t0))])
+        lo = int(seg[0])
+        kw = dict(tiles_x=tx, tiles_y=band_rows, tile_size=ts, height=height,
+                  width=w, hard_cutoffs=hard, tile_row0=ty0)
+        band_rows_t = rows[lo:max(int(seg[-1]), lo)].contiguous()
+        st = (st - lo).to(torch.int32)
+        out = composite_stream(band_rows_t, st, bg, **kw)
+        ref = composite_stream_plain(band_rows_t, st, bg, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        if out.shape != (pw - 7, height, w):
+            raise AssertionError(f"bad band output {tuple(out.shape)}")
+        if height:
+            err = max(err, float((out - ref).abs().max()))
+        equal &= torch.equal(out, whole[:, ty0 * ts:ty0 * ts + height])
+    return err, equal
+
+
+class KeepFirst:
+    """Keeps the arguments and the result of the first call of a module's
+    function while entered. A kernel wrapper counts its launches on the
+    name it is bound to in its own module, so where that is the name
+    replaced here, the count moves on the stand-in while entered and is
+    carried back to the wrapper after."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.own = (module.__name__ == self.fn.__module__
+                    and hasattr(self.fn, "launches"))
+        self.first = None
+
+    def __enter__(self):
+        def kept(*a, **k):
+            out = self.fn(*a, **k)
+            if self.first is None:
+                self.first = (a, k, out)
+            return out
+        if self.own:
+            kept.launches = self.fn.launches
+        self.kept = kept
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            self.fn.launches = self.kept.launches
+        setattr(self.module, self.name, self.fn)
+
+
+def spawn_ranks(fn, world, root, *args, backend="gloo"):
+    """fn(rank, world, *args) in `world` processes (spawned) of one process
+    group over a file:// store in `root`; raises where a rank raised or the
+    group outlasted RANK_TIMEOUT, and leaves no process behind."""
+    import torch.multiprocessing as mp
+    store = os.path.join(root, f"store_{fn.__name__}_{time.time_ns()}")
+    ctx = mp.start_processes(_rank_entry,
+                             args=(fn, world, store, backend, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} on {world} ranks "
+                                   f"outlasted {RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+
+
+def _rank_entry(rank, fn, world, store, backend, args):
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    logging.basicConfig(level=logging.WARNING, format="%(message)s")
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+    else:                                   # a rehearsal on the CPU
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def band_config(model_path, shards):
+    from langsplat4d_torch.config import Config
+    cfg = Config()
+    cfg.model.model_path = model_path
+    cfg.model.white_background = False
+    cfg.runtime.render_tile_size = RENDER_TILE_SIZE
+    cfg.runtime.nonormalized = False
+    cfg.runtime.gaussian_shards = shards
+    return cfg
+
+
+class StageClock:
+    """Marks between the stages of a pass: CUDA events on the card (read
+    after a synchronize), the host's clock on the CPU."""
+
+    def __init__(self, dev):
+        self.on_card = dev.type == "cuda"
+        self.names, self.stamps = [], []
+
+    def __call__(self, name):
+        if self.on_card:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+        else:
+            e = time.perf_counter()
+        self.names.append(name)
+        self.stamps.append(e)
+
+    def ms(self):
+        """{stage: ms from the mark before}."""
+        if self.on_card:
+            torch.cuda.synchronize()
+        return {self.names[j]: (
+            self.stamps[j - 1].elapsed_time(self.stamps[j]) if self.on_card
+            else 1e3 * (self.stamps[j] - self.stamps[j - 1]))
+            for j in range(1, len(self.names))}
+
+
+def _peak_memory(dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _rank_device():
+    return (torch.device("cuda", 0) if torch.cuda.is_available()
+            else torch.device("cpu"))
+
+
+def band_stage_ms(mesh, settings, dcfg, gs, net, aabb, views, exchange):
+    """ms a frame by stage (CUDA events on this rank's stream, mean of
+    BAND_TIMED frames after a warm-up one; a collective's stage holds its
+    host copies and its wait for the other ranks) and the bytes this rank
+    sends a frame."""
+    from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+    from langsplat4d_torch.parallel.render import (gather_bands,
+                                                   render_frame_banded)
+    dev = gs.device
+    bg = torch.zeros(3, device=dev)
+    grid_spatial = make_grid_spatial_cache(net, dcfg, aabb, gs.xyz)
+    tot, stats = {}, {}
+    timed = min(BAND_TIMED, len(views) - 1)
+    for i in range(timed + 1):
+        clock = StageClock(dev)
+        clock("start")
+        cam = views[i].camera_params(dev)
+        frame_stats = {}
+        out = render_frame_banded(
+            settings, dcfg, "fine-lang", cam, views[i].time, gs, net, aabb,
+            bg, mesh, grid_spatial=grid_spatial, exchange=exchange,
+            stats=frame_stats, timer=clock)
+        gather_bands(out["language_feature_image"], settings, mesh)
+        clock("stitch")
+        if i:                                    # frame 0 warms up
+            for k, v in clock.ms().items():
+                tot[k] = tot.get(k, 0.0) + v / timed
+            stats = frame_stats
+    return tot, stats.get("bytes", 0)
+
+
+def band_rank(rank, world, root, frames, workload_kw, t_spawn):
+    """One rank of the band render: the bench workload, render_set with
+    gaussian_shards = world in both exchanges (rank 0 writes the frames),
+    kernel 3's first band held against its plain version, then the stage
+    times; saves its numbers to root/band{world}.{rank}."""
+    from langsplat4d_torch.checkpoint import TrainedModel
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.parallel import render as PR
+    from langsplat4d_torch.parallel.mesh import make_mesh, shard_gaussians
+    from langsplat4d_torch.render.driver import render_set
+    from langsplat4d_torch.render.raster import RasterSettings
+    dev = _rank_device()
+    gs, dcfg, net, aabb, views = bench_workload(dev, frames=frames,
+                                                **workload_kw)
+    model = TrainedModel(gaussians=gs, deform=net, aabb=aabb,
+                         active_sh_degree=3)
+    mesh = make_mesh(1, world)
+    settings = RasterSettings(image_height=views[0].height,
+                              image_width=views[0].width, sh_degree=3,
+                              tile_size=RENDER_TILE_SIZE)
+    res = dict(ready=time.time() - t_spawn)
+    for exchange in ("allgather", "alltoall"):
+        os.environ["LS4D_BAND_EXCHANGE"] = exchange
+        cfg = band_config(os.path.join(root, f"band{world}_{exchange}"),
+                          world)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        C.composite_stream.launches = 0
+        t0 = time.perf_counter()
+        with KeepFirst(PR, "composite_stream") as first, torch.no_grad():
+            fps = render_set(cfg, model, dcfg, None, "video", 0, views,
+                             mode="lang", load_stage="fine-lang",
+                             noimage=True, nonpy=False, novideo=True)
+        secs = time.perf_counter() - t0
+        launches = C.composite_stream.launches
+        (rows, starts, bg), kw, img = first.first
+        err = 0.0
+        if exchange == "allgather":      # the band's rows are the same in
+            with torch.no_grad():        # both exchanges: held once
+                ref = C.composite_stream_plain(rows, starts, bg, **kw)
+            err = float((img - ref).abs().max()) if img.numel() else 0.0
+        with torch.no_grad():
+            stage_ms, sent = band_stage_ms(
+                mesh, settings, dcfg, shard_gaussians(gs, mesh), net, aabb,
+                views, exchange)
+        res[exchange] = dict(
+            fps=fps, secs=secs, launches=launches, err=err,
+            pairs=int(starts[-1]), tile_row0=kw["tile_row0"],
+            band_rows=kw["tiles_y"], stage_ms=stage_ms, bytes=sent,
+            max_mem=_peak_memory(dev))
+    torch.save(res, os.path.join(root, f"band{world}.{rank}"))
+
+
+def two_camera_batch(batch, dev):
+    """The training workload's batch with a second camera (the same view
+    at time 0.7, its own seeded ground truth), so that the data axis
+    splits it."""
+    from langsplat4d_torch.render.raster import CameraParams
+    from langsplat4d_torch.train.step import Batch
+    rng = np.random.default_rng(2)
+    _, lang_dim, H, W = batch.gt_lang.shape
+
+    def up(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+    return Batch(
+        cams=CameraParams(*[torch.cat([t, t]) for t in batch.cams]),
+        times=torch.tensor([0.3, 0.7], device=dev),
+        gt_images=torch.cat([batch.gt_images,
+                             up(rng.uniform(size=(1, 3, H, W)))]),
+        gt_lang=torch.cat([batch.gt_lang,
+                           up(rng.normal(size=(1, lang_dim, H, W)))]),
+        lang_mask=torch.cat([batch.lang_mask, batch.lang_mask]))
+
+
+def _excess(got, want):
+    """The gradient bound relative to the leaf's largest entry: max of
+    |got - want| - (2e-4 scale + 2e-3 |want|), <= 0 within it."""
+    return scaled_errors(got.float(), want.float())[1]
+
+
+def mesh_train_rank(rank, world, root, steps, workload_kw, t_spawn):
+    """One rank of the sharded step: phase 8's workload with a batch of two
+    cameras on the MESH_SHAPE mesh, `steps` train_steps; after each, the
+    whole state gathered and, on rank 0, held against the one-rank step on
+    the same batch (parameters and Adam moments, the gradient bound of
+    each leaf's largest entry); then densify and prune under the mesh
+    against one rank. Kernels 1 and 2 of the first mesh step are held
+    against their plain versions on their inputs. Saves its numbers to
+    root/mesh.{rank}."""
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.parallel.mesh import (apply_unsharded, make_mesh,
+                                                 shard_batch, shard_state,
+                                                 unshard_state)
+    from langsplat4d_torch.train import densify as D
+    from langsplat4d_torch.train.step import train_step
+    from langsplat4d_torch.train.trainstate import GAUSSIAN_KEYS
+    dev = _rank_device()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    state, cfg, batch, bg = train_workload(dev, **workload_kw)
+    batch = two_camera_batch(batch, dev)
+    mesh = make_mesh(*MESH_SHAPE)
+    mcfg = cfg._replace(mesh=mesh)
+    ref = copy.deepcopy(state) if rank == 0 else None
+    sharded = shard_state(state, mesh)
+    local = shard_batch(batch, mesh)
+    ready = time.time() - t_spawn
+    names = ("composite_tiles", "composite_tiles_backward")
+    launches = dict.fromkeys(names, 0)
+    worst, step_ms, losses = {}, [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for it in range(1, steps + 1):
+        before = {n: getattr(C, n).launches for n in names}
+        clock = StageClock(dev)
+        with KeepFirst(C, names[0]) as fwd, KeepFirst(C, names[1]) as bwd:
+            clock("start")
+            sharded, metrics, vs, vis, rmax = train_step(
+                mcfg, sharded, local, bg, it, 3)
+            clock("step")
+        D.update_max_radii(sharded, rmax, vis)
+        D.add_densification_stats(sharded, vs, vis)
+        for n in names:
+            launches[n] += getattr(C, n).launches - before[n]
+        step_ms.append(clock.ms()["step"])
+        if it == 1:
+            (a, k, out) = fwd.first
+            with torch.no_grad():
+                f_err = float((out - C.composite_tiles_plain(*a, **k))
+                              .abs().max())
+                (ab, kb, outb) = bwd.first
+                b_excess = max(scaled_errors(
+                    outb[..., j], C.composite_tiles_backward_plain(
+                        *ab, **kb)[..., j])[1]
+                    for j in range(outb.shape[-1]))
+            shapes = (tuple(a[0].shape), int(a[1].sum()))
+        whole = unshard_state(sharded, mesh)
+        if rank == 0:
+            counts = {n: getattr(C, n).launches for n in names}
+            ref, rmetrics, rvs, rvis, rrmax = train_step(cfg, ref, batch, bg,
+                                                         it, 3)
+            D.update_max_radii(ref, rrmax, rvis)
+            D.add_densification_stats(ref, rvs, rvis)
+            for n in names:                  # the reference's launches
+                getattr(C, n).launches = counts[n]
+            losses.append((float(metrics["loss"]), float(rmetrics["loss"])))
+            got, want = whole.leaves(), ref.leaves()
+            for tree, gt, wt in (("param", got, want),
+                                 ("m", whole.opt.m, ref.opt.m),
+                                 ("v", whole.opt.v, ref.opt.v)):
+                for k in want:
+                    key = f"{tree} {k}" if k in GAUSSIAN_KEYS else \
+                        f"{tree} deform"
+                    worst[key] = max(worst.get(key, -np.inf),
+                                     _excess(gt[k].detach(), wt[k].detach()))
+    # densify and prune: on the whole state on every rank, as the loop
+    # runs them, against one rank
+    dens = dict(max_grad=1e-5, extent=1.6, percent_dense=0.01)
+    sharded = apply_unsharded(sharded, mesh, functools.partial(
+        D.densify, **dens, generator=torch.Generator(dev).manual_seed(7)))
+    sharded = apply_unsharded(sharded, mesh, functools.partial(
+        D.prune, min_opacity=0.005, scene_extent=1.6, max_screen_size=20.0))
+    whole = unshard_state(sharded, mesh)
+    res = dict(ready=ready, step_ms=step_ms, launches=launches, f_err=f_err,
+               b_excess=b_excess, shapes=shapes, max_mem=_peak_memory(dev),
+               local_rows=sharded.params["xyz"].shape[0])
+    if rank == 0:
+        n0 = ref.num_active
+        ref = D.densify(ref, **dens,
+                        generator=torch.Generator(dev).manual_seed(7))
+        n1 = ref.num_active
+        ref = D.prune(ref, 0.005, 1.6, 20.0)
+        n = ref.num_active
+        dens_excess = (max(_excess(whole.params[k][:n], ref.params[k][:n])
+                           for k in GAUSSIAN_KEYS)
+                       if whole.num_active == n else float("inf"))
+        res.update(worst=worst, losses=losses,
+                   densify=(n0, n1, n, whole.num_active, dens_excess))
+    torch.save(res, os.path.join(root, f"mesh.{rank}"))
+
+
+def nccl_one_rank(dev, gs, dcfg, net, aabb, views, ref_dir, root):
+    """render_frame_banded on a world of one rank under NCCL (its
+    collectives go through NCCL on the one group), both exchanges, each
+    frame bit-equal to the one-process render's -> frames rendered."""
+    import datetime
+    import torch.distributed as dist
+    from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+    from langsplat4d_torch.parallel.mesh import make_mesh
+    from langsplat4d_torch.parallel.render import render_frame_banded
+    from langsplat4d_torch.render.raster import RasterSettings
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(root, 'store_nccl')}",
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+    try:
+        mesh = make_mesh(1, 1)
+        settings = RasterSettings(image_height=views[0].height,
+                                  image_width=views[0].width, sh_degree=3,
+                                  tile_size=RENDER_TILE_SIZE)
+        bg = torch.zeros(3, device=dev)
+        with torch.no_grad():
+            grid = make_grid_spatial_cache(net, dcfg, aabb, gs.xyz)
+            for i, view in enumerate(views):
+                want = np.load(os.path.join(ref_dir, f"{i:05d}.npy"))
+                for ex in ("allgather", "alltoall"):
+                    out = render_frame_banded(
+                        settings, dcfg, "fine-lang",
+                        view.camera_params(dev), view.time, gs, net, aabb,
+                        bg, mesh, grid_spatial=grid, exchange=ex)
+                    got = out["language_feature_image"].permute(1, 2, 0)
+                    if not np.array_equal(got.cpu().numpy(), want):
+                        raise AssertionError(
+                            f"NCCL one-rank {ex} frame {i} differs from "
+                            "the one-process render")
+        return len(views)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cli_phase(dev, root, timeout=900, iters=MESH_CLI_ITERS,
+                   cuts=MESH_CLI_CUTS, hidden=None):
+    """The CLIs on two ranks: `python -m torch.distributed.run
+    --standalone --nproc_per_node 2 -m langsplat4d_torch.train` with
+    gaussian_shards = 2 on phase 19's scene (phase 22's export) at
+    MESH_CLI_ITERS, then `.render --mode lang` of the test split on two
+    ranks, and the one-process render CLI on a copy of the same model:
+    every frame bit-equal. Prints the seconds of each."""
+    from langsplat4d_torch.render import __main__ as render_cli
+    model = os.path.join(root, "mesh_cli_model")
+    cfg_files = {}
+    for shards in (1, 2):
+        cfg_files[shards] = os.path.join(root, f"mesh_cli_config{shards}.py")
+        with open(cfg_files[shards], "w") as f:
+            f.write("_base_ = " + repr(os.path.join(
+                REPO, "configs", "hypernerf", "default.py"))
+                + f"\nwatchdog_execv = False\ngaussian_shards = {shards}\n"
+                + (f"ModelHiddenParams = {hidden!r}\n" if hidden else ""))
+    cfg_file = cfg_files[2]
+    flags = dict(zip(("coarse_base_iterations", "coarse_lang_iterations",
+                      "fine_base_iterations", "fine_lang_iterations"),
+                     iters), **cuts)
+    argv = (["--source_path", root, "--model_path", model, "--expname",
+             "smoke_mesh", "--configs", cfg_file, "--language_features_name",
+             f"language_features_dim{AE_ENC[-1]}", "--feature_level", "1",
+             "--save_iterations", str(iters[3]), "--port", "-1",
+             "--no_dlang", "0", "--dist_backend", "gloo"]
+            + [a for k, v in flags.items() for a in (f"--{k}", str(v))])
+    env = dict(os.environ, ExpsDir=os.path.join(root, "exps_mesh"))
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m"]
+    argv += device
+    print("[28] train CLI on 2 ranks (gloo, one card): depth "
+          + " ".join(f"{k} {v}" for k, v in flags.items()), flush=True)
+    secs = {}
+    for what, cmd in (
+            ("train", run + ["langsplat4d_torch.train"] + argv),
+            ("render", run + ["langsplat4d_torch.render", "--model_path",
+                              model, "--source_path", root, "--configs",
+                              cfg_file, "--mode", "lang", "--load_stage",
+                              "fine-lang", "--skip_train", "--skip_video",
+                              "--novideo", "1", "--dist_backend", "gloo"]
+             + device)):
+        t0 = time.perf_counter()
+        p = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True)
+        try:
+            text, _ = p.communicate(timeout=timeout)
+        finally:
+            if p.poll() is None:             # its ranks go with it
+                os.killpg(p.pid, 9)
+                p.wait()
+        secs[what] = time.perf_counter() - t0
+        tail = "\n".join(text.strip().splitlines()[-8:])
+        print(f"[28] {what} CLI on 2 ranks: exit {p.returncode} in "
+              f"{secs[what]:.1f} s; its last lines:\n{tail}", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"the {what} CLI on 2 ranks failed")
+    one = model + "_one"
+    shutil.copytree(model, one, ignore=shutil.ignore_patterns("test_lang"))
+    t0 = time.perf_counter()
+    render_cli.main(["--model_path", one, "--source_path", root,
+                     "--configs", cfg_files[1],
+                     "--mode", "lang", "--load_stage", "fine-lang",
+                     "--skip_train", "--skip_video", "--novideo", "1"]
+                    + device)
+    secs["render one"] = time.perf_counter() - t0
+    it = iters[3]
+    a = sorted(os.listdir(os.path.join(model, "test_lang", f"ours_{it}",
+                                       "renders_npy")))
+    b = sorted(os.listdir(os.path.join(one, "test_lang", f"ours_{it}",
+                                       "renders_npy")))
+    if not a or a != b:
+        raise AssertionError(f"render CLIs wrote {len(a)} and {len(b)} "
+                             "frames")
+    worst = 0.0
+    for name in a:
+        x = np.load(os.path.join(model, "test_lang", f"ours_{it}",
+                                 "renders_npy", name))
+        y = np.load(os.path.join(one, "test_lang", f"ours_{it}",
+                                 "renders_npy", name))
+        worst = max(worst, float(np.abs(x - y).max()))
+    print(f"[28] render CLI: {len(a)} test frames on 2 ranks against one "
+          f"process ({secs['render one']:.1f} s): max abs difference "
+          f"{worst:.3g} (frame 0 and every other must be equal)", flush=True)
+    if worst != 0.0:
+        raise AssertionError("the 2-rank render CLI's frames differ from "
+                             "the one-process CLI's")
+    return secs
+
+
+def mesh_phase(dev, scene_root, smi, band_kw=None, train_kw=None,
+               cli_kw=None):
+    """Phase 28 (see the module's docstring) -> (kernel 3's launches in the
+    bands, {kernel: launches in the sharded steps}, kernel 3's worst band
+    error, kernel 1's error in the sharded step), launches summed over the
+    ranks. `band_kw`, `train_kw` and `cli_kw` size the workloads down for a
+    rehearsal on the CPU (bench_workload's, train_workload's and
+    mesh_cli_phase's keywords); the card runs the full ones."""
+    band_kw, train_kw = band_kw or {}, train_kw or {}
+    on_card = dev.type == "cuda"      # the plain versions count nothing
+    from langsplat4d_torch.checkpoint import TrainedModel
+    from langsplat4d_torch.render.driver import render_set
+    root = os.path.join(REPO, "langsplat4d_torch", "_build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    print(f"[28] multi-rank path on {smi}: ranks are processes on this one "
+          "card under gloo (NCCL refuses two ranks on one device), taking "
+          "turns on it; no number of this phase is a scaling claim",
+          flush=True)
+    t_phase = time.perf_counter()
+    # kernel 3 in bands on synthetic streams
+    band_err = 0.0
+    for case in band_cases():
+        err, equal = compare_band_case(*case, device=dev)
+        band_err = max(band_err, err)
+        print(f"[28] kernel 3 in {case[5]} bands, ts={case[0]} "
+              f"hard={case[1]} {case[2]}x{case[3]} pw={case[4]}: max abs "
+              f"err vs plain {err:.3g}, bit-equal to the whole image's "
+              f"launch: {equal}", flush=True)
+        if not (err <= TOL and equal):
+            raise AssertionError("kernel 3 in bands")
+    # the one-process render of the frames: the reference
+    gs, dcfg, net, aabb, views = bench_workload(dev, frames=BAND_FRAMES,
+                                                **band_kw)
+    model = TrainedModel(gaussians=gs, deform=net, aabb=aabb,
+                         active_sh_degree=3)
+    ref_cfg = band_config(os.path.join(root, "band1"), 1)
+    with torch.no_grad():
+        fps1 = render_set(ref_cfg, model, dcfg, None, "video", 0, views,
+                          mode="lang", load_stage="fine-lang", noimage=True,
+                          nonpy=False, novideo=True)
+    ref_dir = os.path.join(root, "band1", "video_lang", "ours_0",
+                           "renders_npy")
+    print(f"[28] one process: render_set of {BAND_FRAMES} lang frames of the "
+          f"bench workload, FPS {fps1:.3f}", flush=True)
+    band_launches = 0
+    for world in BAND_SHARDS:
+        t0 = time.perf_counter()
+        spawn_ranks(band_rank, world, root, root, BAND_FRAMES, band_kw,
+                    time.time())
+        res = [torch.load(os.path.join(root, f"band{world}.{r}"),
+                          weights_only=False) for r in range(world)]
+        print(f"[28] gaussian_shards {world}: {world} spawned ranks in "
+              f"{time.perf_counter() - t0:.1f} s, each ready (started, "
+              f"imported, its workload built) after "
+              + ", ".join(f"{r['ready']:.1f}" for r in res) + " s",
+              flush=True)
+        for ex in ("allgather", "alltoall"):
+            out_dir = os.path.join(root, f"band{world}_{ex}", "video_lang",
+                                   "ours_0", "renders_npy")
+            for i in range(BAND_FRAMES):
+                a = np.load(os.path.join(out_dir, f"{i:05d}.npy"))
+                b = np.load(os.path.join(ref_dir, f"{i:05d}.npy"))
+                if not np.array_equal(a, b):
+                    raise AssertionError(
+                        f"{ex} on {world} ranks: frame {i} differs from the "
+                        f"one-process render by {np.abs(a - b).max()}")
+            for r, rr in enumerate(res):
+                x = rr[ex]
+                band_launches += x["launches"]
+                band_err = max(band_err, x["err"])
+                print(f"[28] {ex} x{world} rank {r}: band of {x['band_rows']} "
+                      f"tile rows from {x['tile_row0']}; render_set FPS "
+                      f"{x['fps']:.3f} ({x['secs']:.1f} s with the writes); "
+                      f"kernel 3 launches {x['launches']} for "
+                      f"{BAND_FRAMES} frames and the warm-up, its first band "
+                      f"({x['pairs']} pairs) vs plain max abs err "
+                      f"{x['err']:.3g}; ms a frame by stage: "
+                      + ", ".join(f"{k} {v:.3f}"
+                                  for k, v in x["stage_ms"].items())
+                      + f"; sends {x['bytes'] / 1e6:.3f} MB a frame; "
+                      f"max_memory_allocated {x['max_mem'] / 2**30:.2f} GiB",
+                      flush=True)
+                if ((on_card and x["launches"] != BAND_FRAMES + 1)
+                        or not x["err"] <= TOL):
+                    raise AssertionError(f"{ex} x{world} rank {r}: kernel 3 "
+                                         "launches or its error")
+            print(f"[28] {ex} x{world}: rank 0's {BAND_FRAMES} stitched "
+                  "frames bit-equal to the one-process render; dropped 0",
+                  flush=True)
+    n = (nccl_one_rank(dev, gs, dcfg, net, aabb, views, ref_dir, root)
+         if dev.type == "cuda" else 0)
+    print(f"[28] NCCL, a world of one rank: render_frame_banded in both "
+          f"exchanges, {n} frames each bit-equal to the one-process render",
+          flush=True)
+    del gs, net, model
+    torch.cuda.empty_cache()
+    # the sharded step
+    t0 = time.perf_counter()
+    spawn_ranks(mesh_train_rank, MESH_SHAPE[0] * MESH_SHAPE[1], root, root,
+                MESH_STEPS, train_kw, time.time())
+    res = [torch.load(os.path.join(root, f"mesh.{r}"), weights_only=False)
+           for r in range(MESH_SHAPE[0] * MESH_SHAPE[1])]
+    mesh_launches = {k: sum(r["launches"][k] for r in res)
+                     for k in res[0]["launches"]}
+    r0 = res[0]
+    print(f"[28] sharded step: data {MESH_SHAPE[0]} x gauss {MESH_SHAPE[1]} "
+          f"= {len(res)} spawned ranks, phase 8's workload with a batch of "
+          f"2 cameras (one per data rank), {MESH_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s; kernel 1 on the first step's "
+          f"lists {r0['shapes']} vs plain max abs err {r0['f_err']:.3g}, "
+          f"kernel 2 excess over the gradient bound {r0['b_excess']:.3g}",
+          flush=True)
+    for r, x in enumerate(res):
+        print(f"[28] rank {r}: ready after {x['ready']:.1f} s; "
+              f"{x['local_rows']} rows; ms a step median "
+              f"{np.median(x['step_ms']):.3f} (CUDA events; the rank's "
+              f"collectives included); launches "
+              + ", ".join(f"{k} {v}" for k, v in x["launches"].items())
+              + f"; max_memory_allocated {x['max_mem'] / 2**30:.2f} GiB",
+              flush=True)
+        if on_card and min(x["launches"].values()) < MESH_STEPS:
+            raise AssertionError(f"rank {r}: kernels 1-2 did not launch "
+                                 "every step")
+    print("[28] loss (mesh, one rank): " + ", ".join(
+        f"{a:.6f}/{b:.6f}" for a, b in r0["losses"][::5]), flush=True)
+    print("[28] after each step, the gathered state against one rank's, "
+          "worst excess over rtol 2e-3 / atol 2e-4 of the leaf's largest "
+          "entry (<= 0 holds): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in r0["worst"].items()), flush=True)
+    n0, n1, n, nm, dx = r0["densify"]
+    print(f"[28] densify + prune under the mesh: num_active {n0} -> {n1} -> "
+          f"{n} (mesh {nm}); rows' excess {dx:.3g}", flush=True)
+    if (r0["f_err"] > TOL or r0["b_excess"] > 0
+            or max(r0["worst"].values()) > 0 or nm != n or dx > 0
+            or any(abs(a - b) > 1e-5 * abs(b) for a, b in r0["losses"])):
+        raise AssertionError("the sharded step differs from one rank's")
+    secs = mesh_cli_phase(dev, scene_root, **(cli_kw or {}))
+    print(f"[28] phase 28 took {time.perf_counter() - t_phase:.1f} s "
+          f"(CLIs: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + ")", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return band_launches, mesh_launches, band_err, r0["f_err"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[],
                     metavar="NAME=TREE")
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--only", default="", metavar="25,26,27",
-                    help="run the build and only these of phases 25-27 (26 "
-                         "with 19 and 22, whose autoencoder it uses), "
-                         "without the kernels line")
+    ap.add_argument("--only", default="", metavar="25,26,27,28",
+                    help="run the build and only these of phases 25-28 (26 "
+                         "and 28 with 19 and 22, whose scene and "
+                         "autoencoder they use), without the kernels line")
     args = ap.parse_args()
     # warnings only, as before the CLIs of phases 22-23 (which add an INFO
     # handler to stdout where there is none): the output keeps its phases
@@ -4443,14 +5162,18 @@ def main():
                                 "formats")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {25, 26, 27}:
-            raise SystemExit("--only takes phases among 25, 26, 27")
+        if not only <= {25, 26, 27, 28}:
+            raise SystemExit("--only takes phases among 25, 26, 27, 28")
         if 25 in only:
             codec_phase()
-        if 26 in only:
+        if only & {26, 28}:
             shutil.rmtree(scene_root, ignore_errors=True)
             scene_phase(dev, scene_root)
-            neu3d_phase(dev, neu3d_root, ae_phase(dev, scene_root))
+            ae = ae_phase(dev, scene_root)
+        if 26 in only:
+            neu3d_phase(dev, neu3d_root, ae)
+        if 28 in only:
+            mesh_phase(dev, scene_root, smi)
         if 27 in only:
             formats_phase(dev, formats_root)
         print(smi)
@@ -4523,8 +5246,8 @@ def main():
                       height=st.image_height, width=st.image_width,
                       hard_cutoffs=True)
             stats = {}
-            ref = composite.composite_stream_plain(rows, starts, bg,
-                                                   stats=stats, **kw)
+            p_ms, ref = once_ms(lambda: composite.composite_stream_plain(
+                rows, starts, bg, stats=stats, **kw))
             torch.cuda.synchronize()
             if img.shape != (9, 1014, 1352) or not torch.isfinite(img).all():
                 raise AssertionError(f"bad frame {tuple(img.shape)}")
@@ -4547,8 +5270,6 @@ def main():
                     raise AssertionError(f"render_set frame 0 differs {d}")
             k_ms = time_ms(lambda: composite.composite_stream(
                 rows, starts, bg, **kw), 20)
-            p_ms = time_ms(lambda: composite.composite_stream_plain(
-                rows, starts, bg, **kw), 1)
             needed = stats
             if ts == 2 * composite.QUAD:
                 # The plain version evaluates every row of a 32-px tile at
@@ -4729,6 +5450,21 @@ def main():
     torch.cuda.empty_cache()
 
     stamp("24")
+    # 28. the multi-rank path on the card: bands in both exchanges, the
+    # sharded step, the CLIs on two ranks (phase 19's scene, 22's export)
+    band_launches, mesh_launches, band_err, mesh_err = mesh_phase(
+        dev, scene_root, smi)
+    for e in entries:
+        e["band_launches"] = (band_launches
+                              if e["name"] == "composite_stream" else 0)
+        e["mesh_launches"] = mesh_launches.get(e["name"], 0)
+        if e["name"] == "composite_stream":
+            e["max_abs_err"] = max(e["max_abs_err"], band_err)
+        if e["name"] == "composite_tiles":
+            e["max_abs_err"] = max(e["max_abs_err"], mesh_err)
+    torch.cuda.empty_cache()
+
+    stamp("28")
     # 25. the image codec on this host against its numpy twins
     codec_phase()
 

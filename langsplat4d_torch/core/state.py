@@ -39,6 +39,9 @@ class GaussianState:
     opacity: torch.Tensor           # [cap, 1] logits
     language_feature: torch.Tensor  # [cap, L]
     num_active: int
+    # a rank's block of the rows (parallel/mesh.py): the block's first row
+    # in the whole state, against which num_active counts
+    row_offset: int = 0
 
     @property
     def capacity(self) -> int:
@@ -54,7 +57,8 @@ class GaussianState:
 
     def active_mask(self) -> torch.Tensor:
         """[cap] bool; True for live Gaussians."""
-        return torch.arange(self.capacity, device=self.device) < self.num_active
+        return (torch.arange(self.capacity, device=self.device)
+                + self.row_offset) < self.num_active
 
     def get_features(self) -> torch.Tensor:
         """[cap, (max_sh+1)^2, 3] concatenated SH coefficients."""

@@ -53,6 +53,14 @@
 // reference. The operations that reach the image and their order match
 // composite_stream_plain in ops/composite.py; the quadrant test matches
 // quadrant_cover_plain there.
+//
+// A band of tile rows (the multi-rank render, parallel/render.py): with
+// `tile_row0` > 0 the launch covers the tile rows from `tile_row0` on, tile
+// t of the launch being tile t + tile_row0 * tiles_x of the image, and
+// writes the band's image, `height` rows of it. The Gaussian's
+// tile origin `oy` is the image's, so a band blends in the image's pixel
+// coordinates, with the same operations as the whole image's launch: its
+// pixels are bit-equal to the same pixels of that launch.
 
 #include "composite_common.cuh"
 
@@ -71,8 +79,8 @@ composite_stream_kernel(const float* __restrict__ rows,
                         const int* __restrict__ starts,
                         const float* __restrict__ bg,
                         float* __restrict__ out,
-                        int tiles_x, int quads, int height, int width,
-                        int hard) {
+                        int tiles_x, int tile_row0, int quads, int height,
+                        int width, int hard) {
   constexpr int C = PW - HDR;
   const int tile = blockIdx.x / (quads * quads);
   const int quad = blockIdx.x % (quads * quads);
@@ -82,12 +90,14 @@ composite_stream_kernel(const float* __restrict__ rows,
   // the quadrant's first pixel, tile-local and in the image
   const int qx = (quad % quads) * QUAD;
   const int qy = (quad / quads) * QUAD;
+  // in the (band's) output image
   const int x0 = tx * tile_size + qx;
   const int y0 = ty * tile_size + qy;
   if (x0 >= width || y0 >= height) return;
   const int pixel = block_pixel(threadIdx.x);
+  // the tile's origin in the image
   const float ox = static_cast<float>(tx * tile_size);
-  const float oy = static_cast<float>(ty * tile_size);
+  const float oy = static_cast<float>((ty + tile_row0) * tile_size);
   const int seg_begin = starts[tile];
 
   float T = 1.0f;
@@ -123,14 +133,16 @@ composite_stream_kernel(const float* __restrict__ rows,
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a row width or tile size the kernel does not
-// take. `rows` must be 16-byte aligned.
+// take. `rows` must be 16-byte aligned. `num_tiles` tiles from tile row
+// `tile_row0` on; `height` is the output's (the band's) height.
 extern "C" int ls4d_composite_stream(const float* rows, const int* starts,
                                      const float* bg, float* out,
                                      int num_tiles, int tiles_x,
                                      int tile_size, int height, int width,
-                                     int pw, int hard_cutoffs,
+                                     int pw, int hard_cutoffs, int tile_row0,
                                      cudaStream_t stream) {
   if (tile_size != 16 && tile_size != 32) return cudaErrorInvalidValue;
+  if (tile_row0 < 0) return cudaErrorInvalidValue;
   if (num_tiles <= 0) return cudaSuccess;
   const int quads = tile_size / QUAD;
   const dim3 grid(num_tiles * quads * quads);
@@ -138,15 +150,18 @@ extern "C" int ls4d_composite_stream(const float* rows, const int* starts,
   switch (pw) {
     case 16:
       composite_stream_kernel<16><<<grid, block, 0, stream>>>(
-          rows, starts, bg, out, tiles_x, quads, height, width, hard_cutoffs);
+          rows, starts, bg, out, tiles_x, tile_row0, quads, height, width,
+          hard_cutoffs);
       break;
     case 24:
       composite_stream_kernel<24><<<grid, block, 0, stream>>>(
-          rows, starts, bg, out, tiles_x, quads, height, width, hard_cutoffs);
+          rows, starts, bg, out, tiles_x, tile_row0, quads, height, width,
+          hard_cutoffs);
       break;
     case 32:
       composite_stream_kernel<32><<<grid, block, 0, stream>>>(
-          rows, starts, bg, out, tiles_x, quads, height, width, hard_cutoffs);
+          rows, starts, bg, out, tiles_x, tile_row0, quads, height, width,
+          hard_cutoffs);
       break;
     default:
       return cudaErrorInvalidValue;

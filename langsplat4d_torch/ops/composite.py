@@ -117,7 +117,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # library -> {C entry point without its "ls4d_" prefix: argument types}; the
 # stream pointer is appended to every one
 ENTRY_POINTS = {
-    "composite_stream": {"composite_stream": (_P,) * 4 + (_I,) * 7},
+    "composite_stream": {"composite_stream": (_P,) * 4 + (_I,) * 8},
     "composite_tiles": {"composite_tiles": (_P,) * 4 + (_I,) * 5},
     "composite_tiles_backward": {
         "composite_tiles_backward": (_P,) * 5 + (_I,) * 5},
@@ -221,25 +221,33 @@ def _launch(entry: str, device: torch.device, *args) -> None:
 def composite_stream(rows: torch.Tensor, starts: torch.Tensor,
                      bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
                      tile_size: int, height: int, width: int,
-                     hard_cutoffs: bool = True) -> torch.Tensor:
+                     hard_cutoffs: bool = True,
+                     tile_row0: int = 0) -> torch.Tensor:
     """rows [M, PW] f32 (tile, depth)-sorted, starts [T+1] int32 segment
-    bounds (T = tiles_x * tiles_y), bg [3] -> image [PW - 8 + 1, H, W]."""
+    bounds (T = tiles_x * tiles_y), bg [3] -> image [PW - 8 + 1, H, W].
+
+    With `tile_row0`, the segments are those of the band of `tiles_y` tile
+    rows from tile row `tile_row0` on, and the output is the band's image,
+    `height` rows of it: its tiles blend in the image's pixel coordinates,
+    bit-equal to the same tiles of the whole image's call."""
     if rows.device.type == "cpu":
         return composite_stream_plain(
             rows, starts, bg, tiles_x=tiles_x, tiles_y=tiles_y,
             tile_size=tile_size, height=height, width=width,
-            hard_cutoffs=hard_cutoffs)
+            hard_cutoffs=hard_cutoffs, tile_row0=tile_row0)
     if rows.device.type != "cuda":
         raise ValueError(f"composite_stream: no kernel for {rows.device}")
     _check_cuda_args(rows, starts, bg, tiles_x * tiles_y, tile_size)
     _check_aligned(rows=rows)
+    if tile_row0 < 0:
+        raise ValueError(f"tile_row0 {tile_row0} < 0")
     pw = rows.shape[1]
     out = torch.empty((pw - HDR + 1, height, width), dtype=torch.float32,
                       device=rows.device)
     _launch("composite_stream", rows.device, rows.data_ptr(),
             starts.data_ptr(), bg.data_ptr(), out.data_ptr(),
             tiles_x * tiles_y, tiles_x, tile_size, height, width, pw,
-            int(hard_cutoffs))
+            int(hard_cutoffs), int(tile_row0))
     composite_stream.launches += 1
     return out
 
@@ -514,10 +522,12 @@ class _TileGrid:
                                      self.lx * self.ly)
 
     @classmethod
-    def regular(cls, num_tiles: int, tiles_x: int, ts: int, dev):
-        """The first `num_tiles` tiles of a grid `tiles_x` wide, row-major."""
+    def regular(cls, num_tiles: int, tiles_x: int, ts: int, dev,
+                row0: int = 0):
+        """`num_tiles` tiles of a grid `tiles_x` wide, row-major, from tile
+        row `row0` on."""
         tile = torch.arange(num_tiles, device=dev)
-        return cls(tile % tiles_x, tile // tiles_x, ts)
+        return cls(tile % tiles_x, tile // tiles_x + row0, ts)
 
     def alpha(self, r: torch.Tensor, hard_cutoffs: bool
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -622,12 +632,12 @@ def composite_stream_chunks_plain(rows: torch.Tensor, starts: torch.Tensor,
                                   bg: torch.Tensor, *, tiles_x: int,
                                   tile_size: int = 16,
                                   hard_cutoffs: bool = True,
-                                  stats: Optional[dict] = None
-                                  ) -> torch.Tensor:
+                                  stats: Optional[dict] = None,
+                                  tile_row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the stream-layout training forward
-    (`stats`: see `_blend_plain`)."""
+    (`stats`: see `_blend_plain`; `tile_row0`: see `composite_stream`)."""
     grid = _TileGrid.regular(starts.numel() - 1, tiles_x, tile_size,
-                             rows.device)
+                             rows.device, tile_row0)
     return _blend_segments(rows, starts, grid, bg, hard_cutoffs, stats)
 
 
@@ -635,13 +645,16 @@ def composite_stream_plain(rows: torch.Tensor, starts: torch.Tensor,
                            bg: torch.Tensor, *, tiles_x: int, tiles_y: int,
                            tile_size: int, height: int, width: int,
                            hard_cutoffs: bool = True,
-                           stats: Optional[dict] = None) -> torch.Tensor:
+                           stats: Optional[dict] = None,
+                           tile_row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the stream kernel (`stats`: see
-    `_blend_plain`): the segments' blend, stitched to the cropped image."""
+    `_blend_plain`): the segments' blend, stitched to the cropped image
+    (of the band from tile row `tile_row0` on)."""
     ts = tile_size
     accum = composite_stream_chunks_plain(
         rows, starts, bg, tiles_x=tiles_x, tile_size=ts,
-        hard_cutoffs=hard_cutoffs, stats=stats)          # [T, C+1, px]
+        hard_cutoffs=hard_cutoffs, stats=stats,
+        tile_row0=tile_row0)                             # [T, C+1, px]
     c_out = accum.shape[1]
     img = accum.reshape(tiles_y, tiles_x, c_out, ts, ts)
     img = img.permute(2, 0, 3, 1, 4).reshape(c_out, tiles_y * ts,

@@ -9,15 +9,26 @@ configuration, with the command line's source and model paths applied
 again. `--load_stage fine-lang-discrete` renders through each Gaussian's
 mixed language prototypes. Runs on the GPU unless `--device cpu`; without a
 GPU it raises.
+
+Under torchrun (`python -m torch.distributed.run --nproc_per_node D -m
+langsplat4d_torch.render ... --dist_backend nccl|gloo`) each rank joins the
+process group from the environment and takes the card of its LOCAL_RANK;
+a config with `runtime.gaussian_shards` = D renders by tile-row bands
+(render/driver.py) and rank 0 writes. `--dist_backend` is nccl by default,
+gloo with `--device cpu`; ranks that share one card need gloo. One process
+with `gaussian_shards` 1 is the single-device path, with no group.
 """
 import argparse
 import sys
+
+import torch
 
 from langsplat4d_torch.checkpoint import load_trained_model
 from langsplat4d_torch.config import load_cfg_args, parse_cli
 from langsplat4d_torch.core.device import resolve_device
 from langsplat4d_torch.data.scene import Scene
 from langsplat4d_torch.field.deformation import DeformConfig
+from langsplat4d_torch.parallel.mesh import init_from_env
 from langsplat4d_torch.render.driver import render_set
 from langsplat4d_torch.utils.logging import get_logger
 
@@ -36,9 +47,30 @@ def main(argv=None):
     parser.add_argument("--load_stage", type=str, default="fine-lang")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; the current CUDA device by "
-                             "default")
+                             "default (under torchrun, LOCAL_RANK's)")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        help="torch.distributed backend under torchrun: "
+                             "nccl by default, gloo with --device cpu")
     args, rest = parser.parse_known_args(argv)
+    made = init_from_env(dist_backend(args))
+    try:
+        return _render(args, rest)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
+
+
+def dist_backend(args) -> str:
+    """--dist_backend, or nccl for the card and gloo for --device cpu."""
+    if args.dist_backend:
+        return args.dist_backend
+    return "gloo" if args.device == "cpu" else "nccl"
+
+
+def _render(args, rest):
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
 
     cfg = parse_cli(rest, description="Testing script parameters")
     if cfg.model.model_path:

@@ -11,6 +11,14 @@ configured feature level (`HostCamera.get_language_feature`) and saved raw
 into `gt_npy`, where `eval --use_gt_feat 1` reads it; unless ONLY_EVAL is set
 or the scene is not given. A map wider than three channels is shown through
 its top three principal components (`eval/colormaps.pca3`).
+
+With `runtime.gaussian_shards` > 1 the frames are rendered by tile-row
+bands on that many ranks (parallel/render.py, the exchange from
+`LS4D_BAND_EXCHANGE`, "allgather" by default or "alltoall"): each rank keeps
+its block of the model's rows, renders its band, and the bands of each frame
+are gathered to rank 0, which alone writes the files. Where the process
+group has another number of ranks, it raises: the JAX driver renders on one
+chip instead, with a warning.
 """
 from __future__ import annotations
 
@@ -25,6 +33,9 @@ import torch
 from langsplat4d_torch.data.png import png_bytes
 from langsplat4d_torch.eval.colormaps import pca3
 from langsplat4d_torch.field.deformation import make_grid_spatial_cache
+from langsplat4d_torch.parallel.mesh import make_mesh, shard_gaussians
+from langsplat4d_torch.parallel.render import (gather_bands,
+                                               render_frame_banded)
 from langsplat4d_torch.render.pipeline import render
 from langsplat4d_torch.render.raster import RasterSettings
 
@@ -70,19 +81,25 @@ def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
     (checkpoint.TrainedModel) on the model's device; returns the FPS,
     (len(views) - 1) / seconds of the frame loop (reference render.py:95,
     133-134). `scene` gives the dataset type that the ground-truth
-    language maps are read for (lang mode; None reads none)."""
+    language maps are read for (lang mode; None reads none). Under
+    `runtime.gaussian_shards` > 1, every rank of the process group calls
+    it (see the module's docstring); rank 0 writes the files."""
     lf_path = None if cfg.runtime.only_eval else cfg.model.lf_path
     data_type = getattr(scene, "dataset_type", None)
+    mesh = make_mesh(1, cfg.runtime.gaussian_shards)
     base = os.path.join(cfg.model.model_path, f"{name}_{mode}",
                         f"ours_{iteration}")
     render_path = os.path.join(base, "renders")
     gts_path = os.path.join(base, "gt")
     render_npy_path = os.path.join(base, "renders_npy")
     gts_npy_path = os.path.join(base, "gt_npy")
-    for p in (render_path, gts_path, render_npy_path, gts_npy_path):
-        os.makedirs(p, exist_ok=True)
+    if mesh.is_root:
+        for p in (render_path, gts_path, render_npy_path, gts_npy_path):
+            os.makedirs(p, exist_ok=True)
 
     gs, net, aabb = model.gaussians, model.deform, model.aabb
+    if mesh.gauss > 1:
+        gs = shard_gaussians(gs, mesh)
     dev = gs.device
     first = views[0]
     settings = RasterSettings(
@@ -97,10 +114,19 @@ def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
     key = "render" if mode == "rgb" else "language_feature_image"
     cams = [v.camera_params(dev) for v in views]
 
+    exchange = os.environ.get("LS4D_BAND_EXCHANGE", "allgather")
+
     def render_one(i):
-        return render(settings, dcfg, load_stage, cams[i], views[i].time, gs,
-                      net, aabb, bg, nonormalized=cfg.runtime.nonormalized,
-                      grid_spatial=grid_spatial)[key]
+        if mesh.gauss == 1:
+            return render(settings, dcfg, load_stage, cams[i], views[i].time,
+                          gs, net, aabb, bg,
+                          nonormalized=cfg.runtime.nonormalized,
+                          grid_spatial=grid_spatial)[key]
+        band = render_frame_banded(
+            settings, dcfg, load_stage, cams[i], views[i].time, gs, net,
+            aabb, bg, mesh, nonormalized=cfg.runtime.nonormalized,
+            grid_spatial=grid_spatial, exchange=exchange)[key]
+        return gather_bands(band, settings, mesh)
 
     render_one(0)                      # warm-up: kernel build, allocator
     frames = []
@@ -111,6 +137,8 @@ def render_set(cfg, model, dcfg, scene, name: str, iteration: int, views,
     _sync(dev)
     time2 = time_mod.perf_counter()
     fps = (len(views) - 1) / max(time2 - time1, 1e-9)
+    if not mesh.is_root:
+        return fps
     print("FPS:", fps)
 
     render_list = [f.cpu().numpy() for f in frames]

@@ -74,12 +74,13 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
            override_color: Optional[torch.Tensor] = None,
            nonormalized: bool = False,
            grid_spatial=None,
-           means2d_dummy: Optional[torch.Tensor] = None
-           ) -> Dict[str, Optional[torch.Tensor]]:
+           means2d_dummy: Optional[torch.Tensor] = None,
+           gather=None) -> Dict[str, Optional[torch.Tensor]]:
     """One render. Returns render, language_feature_image (None in base
     stages), viewspace_points (the `means2d_dummy` gradient tap; zeros
     [cap, 2] without one, as in the reference), visibility_filter, radii,
-    depth and coff."""
+    depth and coff. `gather`: see `raster.rasterize` (`gs` is then a rank's
+    block of the rows, and the per-row outputs are the block's)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r}; expected one of {STAGES}")
     (means3d, scales_act, rotations_act, opacity_act, shs, lang,
@@ -89,7 +90,8 @@ def render(settings: RasterSettings, dcfg: DeformConfig, stage: str,
     rendered, lang_img, radii, depth = rasterize(
         settings, cam, means3d, opacity_act, scales_act, rotations_act,
         shs if override_color is None else None, override_color, lang, bg,
-        active=gs.active_mask(), means2d_dummy=means2d_dummy)
+        active=gs.active_mask(), means2d_dummy=means2d_dummy,
+        gather=gather)
     return {
         "render": rendered,
         "language_feature_image": None if "base" in stage else lang_img,

@@ -267,6 +267,12 @@ def preprocess(settings: RasterSettings, cam: CameraParams,
     )
 
 
+#: the preprocess outputs (and features) that the training compositors
+#: differentiate: pack_differentiable's columns
+DIFFERENTIABLE = ("point_image", "conic", "opacity", "colors", "features",
+                  "depth")
+
+
 def pack_differentiable(prep: Dict[str, torch.Tensor],
                         features: torch.Tensor) -> torch.Tensor:
     """[N, 6 + C] rows [pix(2), conic(3), opacity, colors, features, depth]:
@@ -349,16 +355,29 @@ def rasterize(settings: RasterSettings, cam: CameraParams,
               means3d, opacities, scales, rotations, shs, colors_precomp,
               language_features: torch.Tensor,   # [N, L]
               bg: torch.Tensor,                  # [3]
-              cov3d_precomp=None, active=None, means2d_dummy=None):
+              cov3d_precomp=None, active=None, means2d_dummy=None,
+              gather=None):
     """Returns (rendered [3, H, W], language image [L, H, W], radii [N],
     depth [1, H, W]) — the CUDA rasterizer's return signature (reference
     gaussian_renderer/__init__.py:219-228). Differentiable only with
-    `settings.stream_train` or `settings.analytic_vjp`."""
+    `settings.stream_train` or `settings.analytic_vjp`.
+
+    `gather` (a rank's share of the rows, parallel/mesh.py
+    `gather_columns`): maps the preprocess outputs and the features of
+    these rows, a dict, to those of every rank's rows; the image is then
+    the whole row set's, and radii stay these rows'."""
     prep = preprocess(settings, cam, means3d, opacities, scales, rotations,
                       shs, colors_precomp, cov3d_precomp, active,
                       means2d_dummy)
     feats = (language_features if settings.include_feature
              else language_features.new_zeros((means3d.shape[0], 0)))
+    radii = prep["radii"]
+    if gather is not None:
+        # the columns that no compositor differentiates go without their
+        # graph: a zero gradient through sqrt(0) in the rects would be NaN
+        prep = gather({k: v if k in DIFFERENTIABLE else v.detach()
+                       for k, v in dict(prep, features=feats).items()})
+        feats = prep.pop("features")
     if settings.stream_train:
         img = composite_stream_slots(settings, prep, feats, bg)
     elif settings.cell_composite:
@@ -373,5 +392,4 @@ def rasterize(settings: RasterSettings, cam: CameraParams,
             height=settings.image_height, width=settings.image_width,
             hard_cutoffs=settings.hard_cutoffs)
     c_lang = feats.shape[1]
-    return (img[:3], img[3:3 + c_lang], prep["radii"],
-            img[3 + c_lang:4 + c_lang])
+    return (img[:3], img[3:3 + c_lang], radii, img[3 + c_lang:4 + c_lang])

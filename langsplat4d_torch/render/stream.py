@@ -14,7 +14,7 @@ directly, and both fields have 32 bits of room.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -91,7 +91,8 @@ def _emit(rmin: torch.Tensor, rmax: torch.Tensor, visible: torch.Tensor
     n = rmin.shape[0]
     dev = rmin.device
     span_x = rmax[:, 0] - rmin[:, 0]
-    count = torch.where(visible, span_x * (rmax[:, 1] - rmin[:, 1]), 0)
+    count = torch.where(visible, span_x * torch.clamp(rmax[:, 1] - rmin[:, 1],
+                                                      min=0), 0)
     end = torch.cumsum(count, 0)
     total = int(end[-1]) if n else 0
     gid = torch.repeat_interleave(torch.arange(n, device=dev), count,
@@ -111,24 +112,22 @@ def _sort_bins(bin_id: torch.Tensor, rank: torch.Tensor, num_bins: int
     return keys, torch.searchsorted(keys, bounds).to(torch.int32)
 
 
-def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
-                 ellipse_cull: bool = True
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Emit and sort. -> (keys [M] int64 sorted, starts [T+1] int32,
-    dorder [N] int64).
-
-    With `ellipse_cull`, rect slots whose tile lies wholly outside the
-    alpha >= 1/255 ellipse (min of the conic quadratic over the tile's
-    pixels > 2 ln(255 op)) are culled: the compositor would give them zero
-    weight anyway. Culled slots get the key `num_tiles << 32` and sort past
-    the last segment, so the valid pairs are keys[:starts[-1]].
-    """
+def _emit_tiles(settings, prep: Dict[str, torch.Tensor], ellipse_cull: bool,
+                tile_band: Optional[Tuple[int, int]]
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The slots of `sorted_pairs` before the sort: (gid [M], tile [M]
+    numbered within the band, culled slots `num_bins`), num_bins."""
     ts = settings.tile_size
-    num_tiles = settings.num_tiles
-    dorder, rank = _depth_order(prep)
-    gid, tx, ty = _emit(prep["rect_min"].long(), prep["rect_max"].long(),
-                        prep["visible"])
-    tile = ty * settings.tiles_x + tx
+    rmin, rmax = prep["rect_min"].long(), prep["rect_max"].long()
+    ty0, band_rows = (0, settings.tiles_y) if tile_band is None else tile_band
+    if tile_band is not None:
+        # the rect's rows inside the band; an empty range emits nothing
+        rmin = torch.stack([rmin[:, 0], torch.clamp(rmin[:, 1], min=ty0)], 1)
+        rmax = torch.stack([rmax[:, 0], torch.clamp(rmax[:, 1],
+                                                    max=ty0 + band_rows)], 1)
+    num_bins = band_rows * settings.tiles_x
+    gid, tx, ty = _emit(rmin, rmax, prep["visible"])
+    tile = (ty - ty0) * settings.tiles_x + tx
     if ellipse_cull:
         conic = prep["conic"][gid]
         pix = prep["point_image"][gid]
@@ -139,9 +138,52 @@ def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
                           pix[:, 0], pix[:, 1],
                           txf * float(ts), txf * float(ts) + (ts - 1.0),
                           tyf * float(ts), tyf * float(ts) + (ts - 1.0))
-        tile = torch.where(q <= t2[gid], tile, num_tiles)
-    keys, starts = _sort_bins(tile, rank[gid], num_tiles)
+        tile = torch.where(q <= t2[gid], tile, num_bins)
+    return gid, tile, num_bins
+
+
+def sorted_pairs(settings, prep: Dict[str, torch.Tensor],
+                 ellipse_cull: bool = True,
+                 tile_band: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Emit and sort. -> (keys [M] int64 sorted, starts [T+1] int32,
+    dorder [N] int64).
+
+    With `ellipse_cull`, rect slots whose tile lies wholly outside the
+    alpha >= 1/255 ellipse (min of the conic quadratic over the tile's
+    pixels > 2 ln(255 op)) are culled: the compositor would give them zero
+    weight anyway. Culled slots get the key `num_tiles << 32` and sort past
+    the last segment, so the valid pairs are keys[:starts[-1]].
+
+    `tile_band=(ty0, band_rows)`: only the tile rows [ty0, ty0 + band_rows)
+    emit, numbered within the band (T = band_rows * tiles_x; rows past the
+    image emit nothing). The rect and cull tests are the whole image's and
+    the keys' order is total, so the band's segments are the same tiles'
+    segments of the whole image's build, slot for slot.
+    """
+    dorder, rank = _depth_order(prep)
+    gid, tile, num_bins = _emit_tiles(settings, prep, ellipse_cull,
+                                      tile_band)
+    keys, starts = _sort_bins(tile, rank[gid], num_bins)
     return keys, starts, dorder
+
+
+def sorted_slots(settings, prep: Dict[str, torch.Tensor], rank: torch.Tensor,
+                 ellipse_cull: bool = True,
+                 tile_band: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`sorted_pairs` with each Gaussian's depth rank given, `rank` [N]
+    int64, in place of this build's own: a rank's share of the Gaussians
+    keyed by their ranks among all ranks' Gaussians, so that the keys of
+    several ranks merge into the one build's order (the port of the JAX
+    package's `_narrow_sorted_pairs(rank=)`). -> (keys [M] int64 sorted,
+    starts [T+1] int32, gid [M] int64, the Gaussian of each sorted slot)."""
+    gid, tile, num_bins = _emit_tiles(settings, prep, ellipse_cull,
+                                      tile_band)
+    keys, order = torch.sort((tile << RANK_BITS) | rank[gid])
+    bounds = torch.arange(num_bins + 1, device=keys.device) << RANK_BITS
+    return (keys, torch.searchsorted(keys, bounds).to(torch.int32),
+            gid[order])
 
 
 def gather_rows(table: torch.Tensor, keys: torch.Tensor,
@@ -152,12 +194,13 @@ def gather_rows(table: torch.Tensor, keys: torch.Tensor,
 
 
 def build_stream(settings, prep: Dict[str, torch.Tensor],
-                 features: torch.Tensor
+                 features: torch.Tensor,
+                 tile_band: Optional[Tuple[int, int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (rows [M, PW] f32, starts [T+1] int32). Tile t's segment is
     rows[starts[t]:starts[t+1]], front to back; culled pairs lie past
-    starts[-1]."""
-    keys, starts, dorder = sorted_pairs(settings, prep)
+    starts[-1]. `tile_band`: see `sorted_pairs`."""
+    keys, starts, dorder = sorted_pairs(settings, prep, tile_band=tile_band)
     rows = gather_rows(pack_attribute_table(prep, features), keys, dorder)
     return rows, starts
 

@@ -11,9 +11,19 @@ inputs), the rgb|gt|lang|gt_lang grid at log cadence, the render-process
 snapshots, densification, the switch to the stream layout, reports and
 saving. The step itself is `train_step_packed` (train/step.py).
 
-Intended removals: orbax checkpoints (torch files instead), the JAX
-package's stream tuning and audit (the port's stream has no static size)
-and the multi-chip mesh.
+On a mesh (`runtime.data_parallel` x `runtime.gaussian_shards` ranks,
+parallel/mesh.py; the JAX package's loop.py:606-630): every rank runs the
+same sampler and seed and holds its block of the Gaussian rows; the batch
+is split over the data axis where the stage's batch size divides over it,
+and replicated otherwise (the batch-1 language stages). Densify, prune,
+point growing and the opacity reset run on the whole state on every rank
+(`apply_unsharded`); rank 0 alone writes (the scene, checkpoints, the log,
+the snapshots, the debug grid, the viewer), from the whole state, so the
+files are the single-rank format; the stream switch is decided once for
+all ranks.
+
+Intended removals: orbax checkpoints (torch files instead) and the JAX
+package's stream tuning and audit (the port's stream has no static size).
 """
 from __future__ import annotations
 
@@ -46,6 +56,9 @@ from langsplat4d_torch.field.deformation import (DeformConfig, DeformNetwork,
                                                  deform_forward)
 from langsplat4d_torch.interop import save_deformation
 from langsplat4d_torch.ops.kmeans import kmeans
+from langsplat4d_torch.parallel.mesh import (Mesh, apply_unsharded,
+                                             make_mesh, shard_batch,
+                                             shard_state, unshard_state)
 from langsplat4d_torch.render.pipeline import binning_report, render
 from langsplat4d_torch.render.raster import CameraParams, RasterSettings
 from langsplat4d_torch.train import densify as D
@@ -636,19 +649,54 @@ def deterministic_on(device: torch.device):
         det.fill_uninitialized_memory = saved[2]
 
 
+def _viewer_connected() -> bool:
+    """Whether a viewer is connected, after one non-blocking accept."""
+    if network_gui.listener is None:
+        return False
+    if network_gui.conn is None:
+        network_gui.try_connect()
+    return network_gui.conn is not None
+
+
+def _mesh_decides(mesh: Optional[Mesh], flag: bool) -> bool:
+    """One decision for every rank: whether any rank's `flag` is set."""
+    if mesh is None:
+        return flag
+    return bool(mesh.all_reduce(torch.tensor([int(flag)]),
+                                torch.distributed.ReduceOp.MAX,
+                                axis="world")[0])
+
+
 def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                          dcfg: DeformConfig, stage: str, joint_train: bool,
                          train_iter: int, timer: Timer,
-                         rng_seed: int = 0) -> TrainState:
+                         rng_seed: int = 0,
+                         mesh: Optional[Mesh] = None) -> TrainState:
     """One curriculum stage (reference scene_reconstruction,
-    train.py:98-427), on the state's device."""
+    train.py:98-427), on the state's device; with a `mesh`, this rank's
+    part of it on its share of the state (`shard_state`)."""
     opt, ex = cfg.optim, cfg.extras
     device = state.device
+    root = mesh is None or mesh.is_root
+    if mesh is not None and os.getenv("LS4D_NAN_FORENSICS"):
+        raise ValueError("LS4D_NAN_FORENSICS keeps a window of whole "
+                         "states: run it on one rank")
+
+    whole_at: dict = {}
+
+    def whole() -> TrainState:
+        """The whole state, gathered on every rank (a collective) once until
+        the state next changes, when `whole_at` is cleared."""
+        if mesh is None:
+            return state
+        if "state" not in whole_at:
+            whole_at["state"] = unshard_state(state, mesh)
+        return whole_at["state"]
     rng = random.Random(rng_seed)
     split_gen = torch.Generator(device=device).manual_seed(rng_seed + 7)
     logger.info("stage:%s begin... train_iter:%d, joint_train:%s", stage,
                 train_iter, joint_train)
-    telemetry = Telemetry(cfg.model.model_path or None,
+    telemetry = Telemetry((cfg.model.model_path or None) if root else None,
                           wandb_name=cfg.extras.expname)
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
                       else [0.0, 0.0, 0.0], device=device)
@@ -673,7 +721,11 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                                 if (cfg.runtime.plane_reg
                                     and stage.startswith("fine")) else 0.0),
         l1_time_planes=cfg.hidden.l1_time_planes,
-        plane_tv_weight=cfg.hidden.plane_tv_weight, batch_size=batch_size)
+        plane_tv_weight=cfg.hidden.plane_tv_weight, batch_size=batch_size,
+        mesh=mesh)
+    # the batch splits over the data axis where its size divides over it
+    data_split = (mesh is not None and mesh.data > 1
+                  and batch_size % mesh.data == 0)
     split = "train"
     gui_ctx: dict = {}
     forensics = (deque(maxlen=12) if os.getenv("LS4D_NAN_FORENSICS")
@@ -707,7 +759,8 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                     if not viewpoint_stack:
                         viewpoint_stack.extend(temp_list)
                     cams.append(train_cams[idx])
-            yield cams, build_batch(cams, cfg, scene, it, device, split,
+            mine = shard_batch(cams, mesh) if data_split else cams
+            yield cams, build_batch(mine, cfg, scene, it, device, split,
                                     need_lang="base" not in stage)
 
     batch_iter = prefetch(batch_source(), depth=cfg.runtime.prefetch_depth)
@@ -737,8 +790,16 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
 
     with deterministic_on(device), HostWriter() as writer:
         for iteration in range(1, train_iter + 1):
-            _gui_poll(cfg, scene, state, step_cfg, stage, iteration,
-                      train_iter, bg, gui_ctx)
+            if mesh is None:
+                _gui_poll(cfg, scene, state, step_cfg, stage, iteration,
+                          train_iter, bg, gui_ctx)
+            elif cfg.extras.port >= 0 and _mesh_decides(
+                    mesh, root and _viewer_connected()):
+                # rank 0 serves the viewer from the whole state
+                full = whole()
+                if root:
+                    _gui_poll(cfg, scene, full, step_cfg._replace(mesh=None),
+                              stage, iteration, train_iter, bg, gui_ctx)
             if iteration % 1000 == 0:
                 one_up_sh_degree(state, cfg.model.sh_degree)
             cams, batch = next(batch_iter)
@@ -752,6 +813,7 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                 step_cfg, state, batch.packed, batch.imgs, batch.segs,
                 batch.tables, bg, state.active_sh_degree)
             pending.append((iteration, metrics["loss"]))
+            whole_at.clear()                 # the step changed the state
             if (forensics is not None and iteration % 10 == 0
                     and not _params_finite(state)):
                 dump = _nan_forensics_dump(cfg, stage, iteration, forensics,
@@ -766,24 +828,36 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                     {f"{stage}/train_loss_patches/l1_loss": loss,
                      f"{stage}/train_loss_patchestotal_loss": loss,
                      f"{stage}/total_points": state.num_active}, iteration)
+            # rank 0 writes, from the whole state, with the one-rank step
+            one_cfg = step_cfg._replace(mesh=None)
             if iteration % 100 == 0:
                 logger.info("[%s] iter %d/%d loss %.6f points %d", stage,
                             iteration, train_iter, ema_loss, state.num_active)
                 if cfg.model.model_path:
-                    _debug_grid(cfg, state, step_cfg, stage, iteration, cams,
-                                batch, bg, writer)
+                    full = whole()
+                    if root:
+                        _debug_grid(cfg, full, one_cfg, stage, iteration,
+                                    cams, batch, bg, writer)
 
             timer.pause()
             if iteration in ex.test_iterations:
-                training_report(cfg, scene, state, step_cfg, stage, iteration,
-                                bg, telemetry=telemetry)
+                full = whole()
+                if root:
+                    training_report(cfg, scene, full, one_cfg, stage,
+                                    iteration, bg, telemetry=telemetry)
             if iteration in ex.save_iterations and "coarse-base" not in stage:
                 logger.info("[ITER %d] Saving Gaussians", iteration)
-                save_scene(cfg, state, iteration, stage, cfg.model.model_path)
+                full = whole()
+                if root:
+                    save_scene(cfg, full, iteration, stage,
+                               cfg.model.model_path)
             if cfg.model.render_process and render_process_due(iteration):
-                render_process_snapshot(cfg, scene, state, step_cfg, stage,
-                                        iteration, bg,
-                                        timer.get_elapsed_time(), writer)
+                full = whole()
+                if root:
+                    render_process_snapshot(cfg, scene, full, one_cfg, stage,
+                                            iteration, bg,
+                                            timer.get_elapsed_time(), writer)
+            whole_at.clear()             # densification changes the state
             timer.start()
 
             # densification (base stages only, train.py:388-414)
@@ -805,54 +879,72 @@ def scene_reconstruction(cfg: Config, scene: Scene, state: TrainState,
                 if (iteration > opt.densify_from_iter
                         and iteration % opt.densification_interval == 0
                         and state.num_active < opt.max_points):
-                    state = D.densify(state, densify_threshold,
-                                      scene.cameras_extent, opt.percent_dense,
-                                      split_gen)
-                    if state.num_active >= state.capacity:
+                    state = apply_unsharded(state, mesh, functools.partial(
+                        D.densify, max_grad=densify_threshold,
+                        extent=scene.cameras_extent,
+                        percent_dense=opt.percent_dense,
+                        generator=split_gen))
+                    capacity = state.full_capacity or state.capacity
+                    if state.num_active >= capacity:
                         logger.warning(
                             "Gaussian capacity %d saturated; further "
                             "densification drops new points. Raise "
                             "runtime.capacity_granule / optim.max_points.",
-                            state.capacity)
+                            capacity)
                 if (iteration > opt.pruning_from_iter
                         and iteration % opt.pruning_interval == 0
                         and state.num_active > opt.min_points_for_prune):
                     size_threshold = (
                         20.0 if iteration > opt.opacity_reset_interval
                         else 0.0)
-                    state = D.prune(state, opacity_threshold,
-                                    scene.cameras_extent, size_threshold)
+                    state = apply_unsharded(state, mesh, functools.partial(
+                        D.prune, min_opacity=opacity_threshold,
+                        scene_extent=scene.cameras_extent,
+                        max_screen_size=size_threshold))
                 if (opt.add_point
                         and iteration % opt.densification_interval == 0
                         and state.num_active < opt.max_points):
                     # the thresholds halve after a round that adds < 100
                     # points, as the reference's state does
                     # (gaussian_model.py:694-697)
-                    state, added = D.grow(state, grow_ctx["density_threshold"],
-                                          grow_ctx["displacement_scale"],
-                                          seed=iteration)
+                    state, added = apply_unsharded(
+                        state, mesh, functools.partial(
+                            D.grow,
+                            density_threshold=grow_ctx["density_threshold"],
+                            displacement_scale=grow_ctx["displacement_scale"],
+                            seed=iteration))
                     if added < 100:
                         grow_ctx["density_threshold"] /= 2
                         grow_ctx["displacement_scale"] /= 2
                     logger.info("point growing, add point num:%d", added)
                 if iteration % opt.opacity_reset_interval == 0:
                     logger.info("reset opacity")
-                    state = D.reset_opacity(state)
+                    state = apply_unsharded(state, mesh, D.reset_opacity)
                 # The switch to the stream layout when the tile lists
                 # truncate, at densify cadence, on the GPU only: the CPU
                 # keeps the lists, as the JAX package keeps them off the TPU.
+                # Under a mesh every rank probes the whole state and the
+                # ranks take one decision, or they would diverge onto
+                # different layouts and deadlock in the next collective.
                 if (cfg.runtime.stream_train_auto
                         and not step_cfg.settings.stream_train
                         and device.type == "cuda"
                         and iteration % opt.densification_interval == 0):
-                    switched = maybe_stream_switch(step_cfg.settings, state,
-                                                   train_cams, iteration)
-                    if switched is not None:
-                        step_cfg = step_cfg._replace(settings=switched)
+                    switched = maybe_stream_switch(
+                        step_cfg.settings, unshard_state(state, mesh)
+                        if mesh is not None else state, train_cams,
+                        iteration)
+                    if _mesh_decides(mesh, switched is not None):
+                        step_cfg = step_cfg._replace(
+                            settings=dataclasses.replace(
+                                step_cfg.settings, stream_train=True))
 
             if iteration in ex.checkpoint_iterations and "fine" in stage:
-                save_checkpoint(state, iteration, stage, cfg.model.model_path,
-                                dcfg)
+                full = whole()
+                whole_at.clear()
+                if root:
+                    save_checkpoint(full, iteration, stage,
+                                    cfg.model.model_path, dcfg)
 
     telemetry.close()
     return state
@@ -950,14 +1042,23 @@ def training(cfg: Config, device=None) -> TrainState:
     fine_lang_iterations + 10000 iterations; the DeformConfig comes from the
     config (`use_discrete_lang_f` from the environment), not from the
     checkpoint. `device=None` is the current CUDA device (an error where
-    there is none)."""
+    there is none).
+
+    With `runtime.data_parallel` x `runtime.gaussian_shards` > 1, each of
+    that many ranks (a torch.distributed process group, which the train
+    CLI starts under torchrun) trains its share of the state on that mesh
+    and returns it (`unshard_state` gives the whole); a world of another
+    size raises."""
     device = resolve_device(device)
+    mesh = training_mesh(cfg)
+    root = mesh is None or mesh.is_root
     model_path = cfg.model.model_path
     if not model_path:
         model_path = os.path.join(cfg.runtime.exps_dir, cfg.extras.expname)
         cfg.model.model_path = model_path
-    os.makedirs(model_path, exist_ok=True)
-    save_cfg_args(cfg, model_path)
+    if root:
+        os.makedirs(model_path, exist_ok=True)
+        save_cfg_args(cfg, model_path)
     scene = Scene(cfg.model.source_path, images=cfg.model.images,
                   eval_split=cfg.model.eval, llffhold=cfg.model.llffhold,
                   white_background=cfg.model.white_background,
@@ -973,11 +1074,13 @@ def training(cfg: Config, device=None) -> TrainState:
                                         max_sh_degree=cfg.model.sh_degree)
         state = prepare_discrete_stage(cfg, state, dcfg,
                                        init_from_stage=ex.init_from_stage)
-        return scene_reconstruction(cfg, scene, state, dcfg,
+        return scene_reconstruction(cfg, scene, _shard(state, mesh), dcfg,
                                     "fine-lang-discrete", ex.joint_fine,
-                                    opt.fine_lang_iterations + 10000, timer)
+                                    opt.fine_lang_iterations + 10000, timer,
+                                    mesh=mesh)
     state, dcfg = init_state_from_scene(cfg, scene, seed=ex.seed,
                                         device=device)
+    state = _shard(state, mesh)
     stages = [("coarse-base", False, opt.coarse_base_iterations),
               ("coarse-lang", ex.joint_coarse, opt.coarse_lang_iterations),
               ("fine-base", False, opt.fine_base_iterations),
@@ -985,8 +1088,24 @@ def training(cfg: Config, device=None) -> TrainState:
     for stage, joint, iters in stages:
         if iters > 0:
             state = scene_reconstruction(cfg, scene, state, dcfg, stage,
-                                         joint, iters, timer)
+                                         joint, iters, timer, mesh=mesh)
     return state
+
+
+def training_mesh(cfg: Config) -> Optional[Mesh]:
+    """The mesh of `runtime.data_parallel` x `runtime.gaussian_shards`
+    ranks, or None for one rank (raises where the process group's world
+    has another size: no config trains on fewer ranks than it names)."""
+    mesh = make_mesh(cfg.runtime.data_parallel, cfg.runtime.gaussian_shards)
+    if mesh.size == 1:
+        return None
+    logger.info("mesh: data%d x gauss%d, rank %d", mesh.data, mesh.gauss,
+                mesh.rank)
+    return mesh
+
+
+def _shard(state: TrainState, mesh: Optional[Mesh]) -> TrainState:
+    return state if mesh is None else shard_state(state, mesh)
 
 
 @torch.no_grad()

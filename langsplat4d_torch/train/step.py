@@ -11,17 +11,29 @@ compiled step: `train_step` updates the state in place and returns it. The
 host synchronises once per camera on the emitted pair count of the tile
 binning (and once more on the stream's length with `stream_train`); the loss
 stays on the device.
+
+On a mesh (`StepConfig.mesh`, parallel/mesh.py), each rank renders its data
+slice of the batch from its block of the Gaussian rows: the deformation and
+the preprocess of its own rows, one all-gather of the preprocess outputs
+(`RowGather`, whose backward keeps the rank's block), and the compositor on
+the whole image, as XLA replicates the Pallas call in the JAX package. The
+gradients of the rank's rows stay on it, averaged over the data axis; those
+of the replicated leaves (the deformation network and the planes) are
+summed over the gauss axis, with the plane regularizer counted on one gauss
+rank only, then averaged over the data axis, as the loss is a batch mean.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from langsplat4d_torch.field.deformation import DeformConfig
 from langsplat4d_torch.field.hexplane import compute_regulation
+from langsplat4d_torch.parallel.mesh import gather_columns
 from langsplat4d_torch.render.pipeline import render
 from langsplat4d_torch.render.raster import CameraParams, RasterSettings
 from langsplat4d_torch.train import losses
@@ -50,6 +62,7 @@ class StepConfig(NamedTuple):
     l1_time_planes: float = 0.0
     plane_tv_weight: float = 0.0
     batch_size: int = 1
+    mesh: Optional[Any] = None  # parallel.mesh.Mesh: the state is sharded
 
 
 class Batch(NamedTuple):
@@ -88,7 +101,10 @@ def materialize_batch(batch: Batch) -> Batch:
 
 
 def _stage_loss(cfg: StepConfig, state: TrainState, batch: Batch, images,
-                lang_imgs) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                lang_imgs, count_reg: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss and its parts. Without `count_reg` the plane regularizer
+    adds its value but no gradient (a gauss rank other than the first)."""
     metrics: Dict[str, torch.Tensor] = {}
     if "base" in cfg.stage:
         loss = losses.l1_loss(images, batch.gt_images[:, :3])
@@ -107,9 +123,10 @@ def _stage_loss(cfg: StepConfig, state: TrainState, batch: Batch, images,
             loss = loss + rgb_l1
             metrics["rgb_l1"] = rgb_l1
     if cfg.time_smoothness_weight != 0.0:
-        loss = loss + compute_regulation(
+        reg = compute_regulation(
             state.deform.deformation_net.grid, cfg.time_smoothness_weight,
             cfg.l1_time_planes, cfg.plane_tv_weight)
+        loss = loss + (reg if count_reg else reg.detach())
     if cfg.lambda_dssim != 0.0:
         s = losses.ssim(images, batch.gt_images[:, :3])
         loss = loss + cfg.lambda_dssim * (1.0 - s)
@@ -150,6 +167,9 @@ def loss_and_grads(cfg: StepConfig, state: TrainState, batch: Batch,
     # cfg.no_dlang governs both the graph and trainability (reference
     # render(), gaussian_renderer/__init__.py:121-124)
     dcfg = dataclasses.replace(cfg.dcfg, no_dlang=cfg.no_dlang)
+    mesh = cfg.mesh
+    gather = (functools.partial(gather_columns, mesh=mesh)
+              if mesh is not None and mesh.gauss > 1 else None)
     b = batch.gt_images.shape[0]
     dummies = torch.zeros((b, state.capacity, 2), device=state.device,
                           requires_grad=True)
@@ -158,23 +178,45 @@ def loss_and_grads(cfg: StepConfig, state: TrainState, batch: Batch,
         cam = CameraParams(*[t[i] for t in batch.cams])
         out = render(settings, dcfg, cfg.stage, cam, batch.times[i], gs,
                      state.deform, state.aabb, bg, means2d_dummy=dummies[i],
-                     nonormalized=cfg.nonormalized)
+                     nonormalized=cfg.nonormalized, gather=gather)
         images.append(out["render"])
         lang = out["language_feature_image"]
         lang_imgs.append(lang if lang is not None
                          else out["render"].new_zeros(
                              (0,) + out["render"].shape[1:]))
         radii.append(out["radii"])
-    loss, metrics = _stage_loss(cfg, state, batch, torch.stack(images),
-                                torch.stack(lang_imgs))
+    loss, metrics = _stage_loss(
+        cfg, state, batch, torch.stack(images), torch.stack(lang_imgs),
+        count_reg=mesh is None or mesh.gauss_rank == 0)
 
     inputs = [dummies] + [gparams[n] if n in gparams else leaves[n]
                           for n in wrt]
     got = torch.autograd.grad(loss, inputs, allow_unused=True)
     dummy_grads = got[0] if got[0] is not None else torch.zeros_like(dummies)
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (metrics, dict(zip(wrt, got[1:])), dummy_grads,
-            torch.stack(radii).detach())
+    grads = dict(zip(wrt, got[1:]))
+    if mesh is not None and mesh.size > 1:
+        # a leaf that the loss does not reach takes zeros, as Adam would
+        grads = {n: g if g is not None else torch.zeros_like(x)
+                 for (n, g), x in zip(grads.items(), inputs[1:])}
+        grads, metrics = _reduce_on_mesh(mesh, grads, metrics)
+    return metrics, grads, dummy_grads, torch.stack(radii).detach()
+
+
+def _reduce_on_mesh(mesh, grads, metrics):
+    """The rows' gradients averaged over the data axis; the replicated
+    leaves' summed over the gauss axis, then averaged over the data axis;
+    the metrics averaged over the data axis."""
+    from langsplat4d_torch.parallel.mesh import data_mean, gauss_sum
+
+    rows = [n for n in grads if n in GAUSSIAN_KEYS]
+    rep = [n for n in grads if n not in GAUSSIAN_KEYS]
+    out = dict(zip(rows, data_mean([grads[n] for n in rows], mesh)))
+    out.update(zip(rep, data_mean(gauss_sum([grads[n] for n in rep], mesh),
+                                  mesh)))
+    names = sorted(metrics)
+    metrics = dict(zip(names, data_mean([metrics[k] for k in names], mesh)))
+    return out, metrics
 
 
 #: packed per-camera row layout for train_step_packed: 16 viewmatrix +
@@ -263,6 +305,12 @@ def train_step(cfg: StepConfig, state: TrainState, batch: Batch,
         cfg, state, batch, bg, active_sh_degree)
     vs_grad = dummy_grads.sum(dim=0)
     radii_max = radii.max(dim=0).values
+    mesh = cfg.mesh
+    if mesh is not None and mesh.data > 1:
+        from langsplat4d_torch.parallel.mesh import data_mean
+        vs_grad = data_mean([vs_grad], mesh)[0]
+        radii_max = mesh.all_reduce(radii_max, torch.distributed.ReduceOp.MAX,
+                                    axis="data")
     visibility = radii_max > 0
 
     leaves = state.leaves()

@@ -10,7 +10,7 @@ training step updates the state in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -40,6 +40,10 @@ class TrainState:
     deformation_accum: torch.Tensor     # [cap, 3]
     aabb: torch.Tensor                  # [2, 3]
     active_sh_degree: int = 0
+    # a rank's block of the rows (parallel/mesh.py shard_state): its first
+    # row in the whole state, and the whole state's capacity (None: whole)
+    row_offset: int = 0
+    full_capacity: Optional[int] = None
 
     @property
     def capacity(self) -> int:
@@ -59,7 +63,7 @@ class TrainState:
     def gaussians(self) -> GaussianState:
         return GaussianState(
             **{PARAM_TO_STATE[k]: self.params[k] for k in GAUSSIAN_KEYS},
-            num_active=self.num_active)
+            num_active=self.num_active, row_offset=self.row_offset)
 
 
 def make_train_state(gs: GaussianState, deform: DeformNetwork, aabb,

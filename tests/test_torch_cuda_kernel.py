@@ -1,16 +1,18 @@
 """The CUDA compositors against their plain PyTorch versions, on the card
-(chip_smoke.py phases 2, 7, 12 and 17 at pytest scale). Skips where there is
-no CUDA device; run on the GPU with `python -m pytest --noconftest -m cuda
-tests/test_torch_cuda_kernel.py` (the suite's conftest imports jax, which
-the GPU machine lacks). Forward bound 3e-5, the repo's kernel bound; the
-backward kernels are held to the repo's gradient bound, rtol 2e-3 / atol
-2e-4 (their block reductions sum in another order than the plain
-versions); on the long synthetic segments that bound is taken relative to
-each column's largest entry, for the reason `compare_segment_case` gives."""
+(chip_smoke.py phases 2, 7, 12, 17 and 28's bands at pytest scale). Skips
+where there is no CUDA device; run on the GPU with `python -m pytest
+--noconftest -m cuda tests/test_torch_cuda_kernel.py` (the suite's
+conftest imports jax, which the GPU machine lacks). Forward bound 3e-5,
+the repo's kernel bound; the backward kernels are held to the repo's
+gradient bound, rtol 2e-3 / atol 2e-4 (their block reductions sum in
+another order than the plain versions); on the long synthetic segments
+that bound is taken relative to each column's largest entry, for the
+reason `compare_segment_case` gives."""
 import pytest
 import torch
 
-from chip_smoke import (cell_cases, compare_case, compare_cell_case,
+from chip_smoke import (band_cases, cell_cases, compare_band_case,
+                        compare_case, compare_cell_case,
                         compare_dense_grid_case, compare_list_case,
                         compare_plane_grad_case,
                         compare_segment_case, kernel_cases, list_cases,
@@ -49,6 +51,29 @@ def test_kernel_launch_is_counted_and_checked(cuda_device):
         composite_stream(torch.zeros((1, 12), device=cuda_device), starts,
                          bg, tiles_x=2, tiles_y=2, tile_size=16, height=20,
                          width=30)
+
+
+@pytest.mark.parametrize("case", band_cases(),
+                         ids=lambda c: f"ts{c[0]}-hard{int(c[1])}-{c[2]}x"
+                                       f"{c[3]}-pw{c[4]}-bands{c[5]}")
+def test_kernel_in_bands_matches_plain_and_the_whole_image(cuda_device,
+                                                           case):
+    """Kernel 3 with `tile_row0` on each band of a stream: within the
+    kernel bound of its plain version on the band, and bit-equal to the
+    same rows of the whole image's launch."""
+    err, equal = compare_band_case(*case, device=cuda_device, seed=1)
+    assert err <= 3e-5
+    assert equal
+
+
+def test_kernel_refuses_a_negative_tile_row(cuda_device):
+    from langsplat4d_torch.ops.composite import composite_stream
+    rows = torch.zeros((0, 16), device=cuda_device)
+    starts = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    bg = torch.zeros(3, device=cuda_device)
+    with pytest.raises(ValueError, match="tile_row0"):
+        composite_stream(rows, starts, bg, tiles_x=2, tiles_y=1,
+                         tile_size=16, height=16, width=30, tile_row0=-1)
 
 
 @pytest.mark.parametrize("case", list_cases(),
