@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare NAME=TREE [--compare ...] [--rounds 3]
-    python3 chip_smoke.py --only 25,26,27,28
+    python3 chip_smoke.py --only 25,26,27,28,29
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 With --compare it checks nothing and only times the six kernels of this
@@ -190,7 +190,20 @@ Phases, each failing the run on error:
      and prune under the mesh against one process; last, the train CLI
      under `torch.distributed.run` on 2 ranks with gaussian_shards 2 on
      phase 19's scene (MESH_CLI_ITERS), and the render CLI on 2 ranks,
-     every frame bit-equal to the one-process render CLI's.
+     every frame bit-equal to the one-process render CLI's;
+ 29. (run after 27) the offline preprocessing, langsplat4d_torch/
+     preprocess/, on 8 frames at HyperNeRF's 960x536 (rgb/2x) with 4-level
+     mask stacks of 100/75/50/30 segments and id maps, written by the
+     phase: masks_update on ~100 SAM-style candidates a level and frame
+     (segments, shifted near-duplicates, eroded contained masks, unions),
+     process_sequence with a seeded 512-d stand-in encoder (a fixed linear
+     map of the tiles), process_frames for every object id,
+     generate_captions with a stand-in captioner, encode_feature and
+     assemble_final_features with a seeded 4096-d stand-in embedder, then
+     `langsplat4d_torch.ae.train` (5 epochs) and `.ae.test` on the written
+     *_f.npy; every stage again with device="cpu" in this process: NMS
+     indices, tiles, seg maps, prompt PNGs and video-feature files equal,
+     the fp16 features within 1e-3; ms a frame per stage.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
 phase 20's loop as `loop_launches`, in phase 23's render as
@@ -198,14 +211,15 @@ phase 20's loop as `loop_launches`, in phase 23's render as
 `neu3d_launches`, and in phase 28's bands as `band_launches` and sharded
 steps as `mesh_launches`, summed over the ranks), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
-of JAX or of the JAX package. `--only 25,26,27,28` runs the build and those
-phases alone (26 and 28 with 19 and 22) and prints no kernels line.
+of JAX or of the JAX package. `--only 25,26,27,28,29` runs the build and
+those phases alone (26 and 28 with 19 and 22) and prints no kernels line.
 """
 import argparse
 import contextlib
 import copy
 import dataclasses
 import functools
+import hashlib
 import importlib.util
 import json
 import logging
@@ -5096,13 +5110,357 @@ def mesh_phase(dev, scene_root, smi, band_kw=None, train_kw=None,
     return band_launches, mesh_launches, band_err, r0["f_err"]
 
 
+# phase 29: the offline preprocessing on HyperNeRF's rgb/2x frames
+PRE_FRAMES = 8
+PRE_HW = (536, 960)
+PRE_LEVELS = (100, 75, 50, 30)     # segments a level: default, s, m, l
+PRE_CANDIDATES = 100               # SAM-style candidates a level and frame
+PRE_BACKGROUND = 8                 # level-l segments that the id maps zero
+PRE_AE_EPOCHS = 5
+PRE_EMBED_DIM = 4096               # an e5-mistral-7b-instruct embedding's
+PRE_FEATURE_TOL = 1e-3             # fp16 features, card against CPU
+PRE_CHECK_FRAMES = 2               # frames run again on the CPU
+
+
+def preprocess_scene(dev, root, frames=PRE_FRAMES, hw=PRE_HW,
+                     levels=PRE_LEVELS, seed=29):
+    """Phase 29's inputs, written under `root`: frames rgb/2x/{i:06}.png
+    (seeded texture), masks/{i:06}.npy (a [4, H, W] int32 stack a frame:
+    nearest-seed segments, `levels` of them a level, the seeds drifting
+    from frame to frame) and objects/{i:06}.npy (the id map of the
+    prompts: level l's labels, the first PRE_BACKGROUND of them zeroed as
+    background)."""
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    seeds = [rng.random((n, 2)) * (h, w) for n in levels]
+    drift = [rng.normal(0, 4, (n, 2)) for n in levels]
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    pix = torch.stack([yy.reshape(-1), xx.reshape(-1)], 1).float()
+    items = []
+    from langsplat4d_torch.data.png import png_bytes
+    for i in range(1, frames + 1):
+        img = texture(h, w, 3, seed=seed + i)
+        items.append((os.path.join(root, "rgb", "2x", f"{i:06}.png"),
+                      functools.partial(png_bytes, img)))
+        stack = []
+        for s, d in zip(seeds, drift):
+            c = torch.from_numpy(s + i * d).float().to(dev)
+            stack.append(torch.cdist(pix, c).argmin(1).reshape(h, w) + 1)
+        stack = torch.stack(stack).to(torch.int32).cpu().numpy()
+        ids = np.where(stack[3] <= PRE_BACKGROUND, 0, stack[3])
+        for sub, arr in (("masks", stack), ("objects", ids)):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            np.save(os.path.join(root, sub, f"{i:06}.npy"), arr)
+    write_files(items)
+
+
+def sam_candidates(labels, n, cap, rng):
+    """~`cap` SAM-style candidate dicts from one level's [H, W] labels 1..n
+    on its device: segments, near-duplicates (shifted 1 and 2 px), contained
+    masks (eroded by 2 px) and unions of neighbouring labels, with seeded
+    stability and predicted-IoU scores (a twentieth below the 0.1 floor)."""
+    dev = labels.device
+    segs = labels[None] == torch.arange(1, n + 1, device=dev)[:, None, None]
+    m = min(n, cap // 2)
+    eroded = 1 - torch.nn.functional.max_pool2d(
+        1 - segs[m // 2:m, None].float(), 5, 1, 2)[:, 0]
+    j = torch.arange(cap - 2 * m, device=dev) % (n - 1)
+    cand = torch.cat([segs[:m], torch.roll(segs[:m // 2], (1, 2), (1, 2)),
+                      eroded > 0, segs[j] | segs[j + 1]])
+    stab = rng.uniform(0.6, 1.0, len(cand))
+    stab[rng.random(len(cand)) < 0.05] = 0.05
+    piou = rng.uniform(0.5, 1.0, len(cand))
+    return [{"segmentation": c, "stability_score": float(a),
+             "predicted_iou": float(b), "id": k}
+            for k, (c, a, b) in enumerate(zip(cand, stab, piou))]
+
+
+class StandInEncoder:
+    """The CLIP image tower's seeded stand-in: a fixed linear map of the
+    tiles (a 14x14 average pool to [3, 16, 16], then a [768, 512] matrix),
+    in fp32 with TF32 off. With `record`, keeps a hash of the bytes of each
+    batch of tiles it is given."""
+
+    def __init__(self, dev, record=False, seed=29):
+        w = np.random.default_rng(seed).standard_normal((768, CLIP_DIM))
+        self.w = torch.from_numpy((w / np.sqrt(768)).astype(np.float32)
+                                  ).to(dev)
+        self.record, self.hashes = record, []
+
+    def __call__(self, tiles):
+        from langsplat4d_torch.core.device import fp32_matmul
+        if self.record:
+            self.hashes.append(hashlib.sha1(
+                (tiles * 255).round().to(torch.uint8).cpu().numpy()
+                .tobytes()).hexdigest())
+        with fp32_matmul():
+            return (torch.nn.functional.avg_pool2d(tiles, 14).flatten(1)
+                    @ self.w)
+
+
+class StandInCaptioner:
+    """Qwen2-VL's stand-in: captions made from the frames' names."""
+
+    def caption_video(self, frame_paths, prompt):
+        return (f"object {os.path.basename(os.path.dirname(frame_paths[0]))}"
+                f" over {len(frame_paths)} frames")
+
+    def caption_frames(self, frame_paths, prompt):
+        return "state at " + " ".join(os.path.basename(p)[:6]
+                                      for p in frame_paths)
+
+
+def stand_in_embedding(text):
+    """e5-mistral-7b-instruct's stand-in: a seeded 4096-d float32 vector
+    from the text's CRC, made on the host (the same on every device)."""
+    import zlib
+    return np.random.default_rng(zlib.crc32(text.encode())).standard_normal(
+        PRE_EMBED_DIM).astype(np.float32)
+
+
+def same_files(a, b):
+    """Relative paths of the files under `a` whose bytes differ from (or
+    are missing under) `b`."""
+    from pathlib import Path
+    bad = []
+    for f in sorted(Path(a).rglob("*")):
+        other = Path(b) / f.relative_to(a)
+        if f.is_file() and (not other.is_file()
+                            or other.read_bytes() != f.read_bytes()):
+            bad.append(str(f.relative_to(a)))
+    return bad
+
+
+def preprocess_phase(dev, root, frames=PRE_FRAMES, hw=PRE_HW,
+                     levels=PRE_LEVELS, cap=PRE_CANDIDATES,
+                     epochs=PRE_AE_EPOCHS, check=PRE_CHECK_FRAMES, smi=""):
+    """Phase 29 (see the module's docstring). Every stage runs on `dev`
+    over all frames, and again with device="cpu" in this process over the
+    first `check` frames (the video features over all): NMS indices, tiles,
+    seg maps, prompt PNGs and the video-feature files must be equal, the
+    fp16 CLIP features within PRE_FEATURE_TOL. Returns the per-stage ms a
+    frame, taken on `dev` after a first run (warm)."""
+    from langsplat4d_torch.ae import test as ae_test
+    from langsplat4d_torch.ae import train as ae_train
+    from langsplat4d_torch.data.codec import read_image
+    from langsplat4d_torch.preprocess import clip_features as CF
+    from langsplat4d_torch.preprocess import image_prompt as IP
+    from langsplat4d_torch.preprocess import mask_nms as MN
+    from langsplat4d_torch.preprocess import video_captions as VC
+    from langsplat4d_torch.preprocess import video_features as VF
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    preprocess_scene(dev, root, frames, hw, levels)
+    images = sorted(os.path.join(root, "rgb", "2x", f)
+                    for f in os.listdir(os.path.join(root, "rgb", "2x")))
+    stacks = sorted(os.path.join(root, "masks", f)
+                    for f in os.listdir(os.path.join(root, "masks")))
+    objects = os.path.join(root, "objects")
+    print(f"[29] preprocessing on {smi or dev}: {frames} frames at "
+          f"{hw[1]}x{hw[0]} (HyperNeRF's rgb/2x), {len(levels)}-level stacks "
+          f"of {'/'.join(map(str, levels))} segments; the encoder, captioner "
+          f"and embedder are seeded stand-ins (a fixed linear map of the "
+          f"tiles to {CLIP_DIM}-d, captions from the frame names, "
+          f"{PRE_EMBED_DIM}-d vectors from the text's CRC): no number here "
+          f"is a CLIP, Qwen2-VL or e5 time; frames 1-{check} again on the "
+          f"CPU", flush=True)
+    ms, cpu_s = {}, {}
+
+    def clock():
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # masks_update on SAM-style candidates, every level of every frame
+    def nms_run(side, n_frames):
+        out, secs = [], []
+        for fi, path in enumerate(stacks[:n_frames]):
+            stack = torch.from_numpy(np.load(path)).to(dev)
+            for lvl, n in enumerate(levels):
+                cands = sam_candidates(stack[lvl], n, cap,
+                                       np.random.default_rng(fi * 7 + lvl))
+                for c in cands:
+                    c["segmentation"] = c["segmentation"].to(side)
+                t0 = clock()
+                (got,) = MN.masks_update(cands, device=side)
+                secs.append(clock() - t0)
+                out.append([c["id"] for c in got])
+        return out, sum(secs)
+    nms_run(dev, 1)                                           # warm-up
+    kept, t_nms = nms_run(dev, frames)
+    t0 = clock()
+    kept_cpu, _ = nms_run(cpu, check)
+    cpu_s["masks_update"] = clock() - t0
+    ms["masks_update"] = t_nms * 1e3 / frames
+    diff = sum(a != b for a, b in zip(kept, kept_cpu))
+    print(f"[29] masks_update: {frames * len(levels)} calls of "
+          f"{cap} candidates, {sum(map(len, kept))} kept; "
+          f"{ms['masks_update']:.3f} ms a frame ({len(levels)} calls; wall "
+          f"clock, synchronised); against the CPU: {diff} of "
+          f"{len(kept_cpu)} calls keep other masks", flush=True)
+    if diff:
+        raise AssertionError("masks_update: the card keeps other masks "
+                             "than the CPU")
+
+    # process_sequence: tiles, seg maps, features on disk; against the CPU
+    lf, lf_cpu = (os.path.join(root, sub, "language_features")
+                  for sub in ("", "cpu"))
+    enc = StandInEncoder(dev, record=True)
+    CF.process_sequence(images, stacks, lf, enc, device=dev)
+    enc_cpu = StandInEncoder(cpu, record=True)
+    t0 = clock()
+    CF.process_sequence(images[:check], stacks[:check], lf_cpu, enc_cpu,
+                        device=cpu)
+    cpu_s["process_sequence"] = clock() - t0
+    checked = sorted(os.listdir(lf_cpu))
+    seg_bad = [f for f in same_files(lf_cpu, lf) if f.endswith("_s.npy")]
+    f_err = max(float(np.abs(
+        np.load(os.path.join(lf, f)).astype(np.float32)
+        - np.load(os.path.join(lf_cpu, f)).astype(np.float32)).max())
+        for f in checked if f.endswith("_f.npy"))
+    tiles_equal = enc.hashes[:len(enc_cpu.hashes)] == enc_cpu.hashes
+    print(f"[29] process_sequence against the CPU: the tiles of "
+          f"{len(enc_cpu.hashes)} encoder calls byte-equal: {tiles_equal}; "
+          f"{len(seg_bad)} of {len(checked) // 2} seg maps differ; fp16 "
+          f"features max abs err {f_err:.3g} (<= {PRE_FEATURE_TOL}: the "
+          f"stand-in's products summed in another order)", flush=True)
+    if not tiles_equal or seg_bad or not f_err <= PRE_FEATURE_TOL:
+        raise AssertionError(f"process_sequence: {seg_bad}, {f_err}")
+    enc = StandInEncoder(dev)
+    t0 = clock()
+    CF.process_sequence(images, stacks, lf, enc, device=dev)
+    ms["process_sequence"] = (clock() - t0) * 1e3 / frames
+    stage = dict.fromkeys(("decode", "masks_from_stack", "mask2segmap",
+                           "encoder"), 0.0)
+    for img_path, seg_path in zip(images, stacks):
+        t0 = clock()
+        image = CF.rgb(torch.from_numpy(read_image(img_path)).to(dev))
+        stack = torch.from_numpy(np.load(seg_path)).to(dev)
+        t1 = clock()
+        lv = CF.masks_from_stack(stack, dev)
+        t2 = clock()
+        tiles = [CF.mask2segmap(m, image, dev)[0] for m in lv]
+        t3 = clock()
+        [enc(t) for t in tiles]
+        t4 = clock()
+        for k, dt in zip(stage, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stage[k] += dt * 1e3 / frames
+    ms.update(stage)
+    feats = sorted(f for f in os.listdir(lf) if f.endswith("_f.npy"))
+    rows = sum(len(np.load(os.path.join(lf, f))) for f in feats)
+    print(f"[29] process_sequence: {frames} frames, {rows} segment features "
+          f"of {CLIP_DIM}-d, {ms['process_sequence']:.3f} ms a frame "
+          f"(warm) with the writes; apart: decode + upload {ms['decode']:.3f}, "
+          f"masks_from_stack {ms['masks_from_stack']:.3f}, mask2segmap "
+          f"(tiles and seg maps, {len(levels)} levels) "
+          f"{ms['mask2segmap']:.3f}, stand-in encoder {ms['encoder']:.3f} "
+          f"(wall clock, synchronised)", flush=True)
+
+    # process_frames: the prompts of every object id; against the CPU
+    ids = IP.collect_unique_ids(objects, frames, device=dev)
+    prompts, prompts_cpu = (os.path.join(root, sub, "prompts")
+                            for sub in ("", "cpu"))
+    IP.process_frames(ids, 1, objects, os.path.dirname(images[0]),
+                      os.path.join(root, "warm"), device=dev)
+    t0 = clock()
+    IP.process_frames(ids, frames, objects, os.path.dirname(images[0]),
+                      prompts, device=dev)
+    ms["process_frames"] = (clock() - t0) * 1e3 / frames
+    t0 = clock()
+    IP.process_frames(ids, check, objects, os.path.dirname(images[0]),
+                      prompts_cpu, device=cpu)
+    cpu_s["process_frames"] = clock() - t0
+    n_png = sum(len(f) for _, _, f in os.walk(prompts))
+    n_cpu = sum(len(f) for _, _, f in os.walk(prompts_cpu))
+    bad = same_files(prompts_cpu, prompts)
+    image = IP.rgba(torch.from_numpy(read_image(images[0])).to(dev))
+    mask = torch.from_numpy(np.load(os.path.join(objects, "000001.npy"))
+                            ).to(dev)
+    t0 = clock()
+    bw = IP.grey_rgba(IP.gaussian_blur(image))
+    t1 = clock()
+    finals = [IP.highlight(image, bw, (mask == k)[None])[0]
+              for k in sorted(ids)]
+    t2 = clock()
+    [IP.pillow_rows(f).cpu() for f in finals]
+    t3 = clock()
+    ms["blur"] = (t1 - t0) * 1e3
+    ms["highlight"] = (t2 - t1) * 1e3 / len(finals)
+    ms["pillow_rows"] = (t3 - t2) * 1e3 / len(finals)
+    print(f"[29] process_frames: {len(ids)} ids, {n_png} RGBA PNGs, "
+          f"{ms['process_frames']:.3f} ms a frame with decode, PNG deflate "
+          f"({IP.PNG_WORKERS} threads) and writes; frame 1 apart: blur + "
+          f"grey {ms['blur']:.3f} ms, {ms['highlight']:.3f} ms an object's "
+          f"composite and outline, {ms['pillow_rows']:.3f} ms its PNG filter "
+          f"choice and copy to the host (wall clock, synchronised); against "
+          f"the CPU: {len(bad)} of {n_cpu} PNGs differ", flush=True)
+    if bad:
+        raise AssertionError(f"process_frames: {bad[:5]}")
+
+    # captions (stand-in), then the video features from them; against the
+    # CPU on every frame
+    captions = os.path.join(root, "captions")
+    VC.generate_captions(prompts, captions, StandInCaptioner())
+    shutil.copytree(captions, os.path.join(root, "cpu", "captions"))
+    for side, sub in ((dev, ""), (cpu, "cpu")):
+        cap_dir = os.path.join(root, sub, "captions")
+        t0 = clock()
+        VF.encode_feature(cap_dir, "features", objects, stand_in_embedding,
+                          embed_dim=PRE_EMBED_DIM, device=side)
+        t1 = clock()
+        VF.assemble_final_features(os.path.join(cap_dir, "features"),
+                                   objects,
+                                   os.path.join(cap_dir, "final_features"),
+                                   device=side)
+        if not sub:
+            ms["encode_feature"] = (t1 - t0) * 1e3 / frames
+            ms["assemble_final_features"] = (clock() - t1) * 1e3 / frames
+        else:
+            cpu_s["video_features"] = clock() - t0
+    final = np.load(os.path.join(captions, "final_features", "000001_f.npy"))
+    bad = same_files(os.path.join(root, "cpu", "captions"), captions)
+    print(f"[29] encode_feature {ms['encode_feature']:.3f} ms a frame "
+          f"({len(ids)} caption files, float64 tables [{final.shape[0] + 1}, "
+          f"{PRE_EMBED_DIM}]), assemble_final_features "
+          f"{ms['assemble_final_features']:.3f} (wall clock); against the "
+          f"CPU: {len(bad)} files differ", flush=True)
+    if bad:
+        raise AssertionError(f"video features: {bad[:5]}")
+
+    # the written features into the port's autoencoder
+    argv = ae_argv(root, dev)
+    t0 = clock()
+    best = ae_train.main(argv + ["--num_epochs", str(epochs),
+                                 "--eval_from_epoch", "-1"])
+    out_dir = ae_test.main(argv)
+    ae_s = clock() - t0
+    first = np.load(os.path.join(lf, feats[0]))
+    codes = np.load(os.path.join(out_dir, feats[0]))
+    print(f"[29] ae.train {epochs} epochs on the {rows} features (best eval "
+          f"loss {best:.6f}) and ae.test: {ae_s:.1f} s; {feats[0]}: "
+          f"{first.shape} -> {codes.shape}", flush=True)
+    if (not best < 100.0 or codes.shape != (len(first), AE_ENC[-1])
+            or not np.allclose(np.linalg.norm(codes, axis=1), 1, atol=1e-5)):
+        raise AssertionError("the AE does not take the written features")
+    print("[29] ms a frame: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in ms.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s, of which the "
+          f"CPU's runs " + ", ".join(f"{k} {v:.2f} s"
+                                     for k, v in cpu_s.items())
+          + f"; {smi}", flush=True)
+    return ms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[],
                     metavar="NAME=TREE")
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--only", default="", metavar="25,26,27,28",
-                    help="run the build and only these of phases 25-28 (26 "
+    ap.add_argument("--only", default="", metavar="25,26,27,28,29",
+                    help="run the build and only these of phases 25-29 (26 "
                          "and 28 with 19 and 22, whose scene and "
                          "autoencoder they use), without the kernels line")
     args = ap.parse_args()
@@ -5160,10 +5518,12 @@ def main():
     neu3d_root = os.path.join(REPO, "langsplat4d_torch", "_build", "neu3d")
     formats_root = os.path.join(REPO, "langsplat4d_torch", "_build",
                                 "formats")
+    preprocess_root = os.path.join(REPO, "langsplat4d_torch", "_build",
+                                   "preprocess")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {25, 26, 27, 28}:
-            raise SystemExit("--only takes phases among 25, 26, 27, 28")
+        if not only <= {25, 26, 27, 28, 29}:
+            raise SystemExit("--only takes phases among 25, 26, 27, 28, 29")
         if 25 in only:
             codec_phase()
         if only & {26, 28}:
@@ -5176,6 +5536,8 @@ def main():
             mesh_phase(dev, scene_root, smi)
         if 27 in only:
             formats_phase(dev, formats_root)
+        if 29 in only:
+            preprocess_phase(dev, preprocess_root, smi=smi)
         print(smi)
         return 0
 
@@ -5486,6 +5848,13 @@ def main():
     torch.cuda.empty_cache()
 
     stamp("27")
+    # 29. the offline preprocessing on the card, against the CPU, into the
+    # autoencoder
+    preprocess_phase(dev, preprocess_root, smi=smi)
+    shutil.rmtree(preprocess_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    stamp("29")
     # 11, and 15's: the profiles of the two training steps
     for stream, ms_step, phase in ((False, list_ms, 11),
                                    (True, stream_ms, 15)):

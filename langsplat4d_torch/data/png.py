@@ -71,13 +71,33 @@ def png_bytes(img: np.ndarray, filters=0) -> bytes:
                                   0)[0]
     else:
         line = img.reshape(h, w * bpp)
-    raw = np.concatenate([ft[:, None], line.astype(np.uint8)], 1)
+    return png_from_rows(np.concatenate([ft[:, None], line.astype(np.uint8)],
+                                        1), w, bpp)
+
+
+def png_from_rows(rows: np.ndarray, w: int, bpp: int,
+                  pillow: bool = False) -> bytes:
+    """PNG bytes of filtered scanlines `rows` [H, 1 + W * bpp] uint8, each
+    row's filter byte first: zlib level 6 in one IDAT chunk; with `pillow`,
+    compressed and cut as Pillow writes (ZipEncode.c, ImageFile._save):
+    level 6 with memLevel 9 and Z_FILTERED, IDAT chunks of MAXBLOCK (65536)
+    bytes or 4 W if more. Rows under Pillow's filter choice then give PIL's
+    file byte for byte."""
+    h = rows.shape[0]
+    raw = np.ascontiguousarray(rows, np.uint8).tobytes()
+    if pillow:
+        z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+        data = z.compress(raw) + z.flush()
+        step = max(65536, 4 * w)
+        idat = b"".join(png_chunk(b"IDAT", data[i:i + step])
+                        for i in range(0, len(data), step))
+    else:
+        idat = png_chunk(b"IDAT", zlib.compress(raw, 6))
     color_type = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
     return (SIGNATURE
             + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
                                              0, 0, 0))
-            + png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + png_chunk(b"IEND", b""))
+            + idat + png_chunk(b"IEND", b""))
 
 
 def _average_row(line: bytes, prev: bytes, bpp: int) -> bytearray:

@@ -73,6 +73,11 @@ SLICE = (
     "langsplat4d_torch.eval.__main__",
     "langsplat4d_torch.preprocess",
     "langsplat4d_torch.preprocess.preprocess_neu3d",
+    "langsplat4d_torch.preprocess.mask_nms",
+    "langsplat4d_torch.preprocess.clip_features",
+    "langsplat4d_torch.preprocess.image_prompt",
+    "langsplat4d_torch.preprocess.video_captions",
+    "langsplat4d_torch.preprocess.video_features",
 )
 # libraries a GPU host may lack: the port imports none of them
 HOST_LACKS = ("cv2", "PIL", "matplotlib", "sklearn")
@@ -232,6 +237,21 @@ def _call_without_device(entry, tmp_path):
                      "--annotation_folder", str(tmp_path),
                      "--ae_ckpt_path", str(tmp_path / "none.pth"),
                      "--output_path", str(tmp_path / "out")])
+    if entry == "mask_nms":
+        from langsplat4d_torch.preprocess.mask_nms import mask_nms
+        return mask_nms(z((2, 4, 4), bool), z(2))
+    if entry == "masks_from_stack":
+        from langsplat4d_torch.preprocess.clip_features import (
+            masks_from_stack)
+        return masks_from_stack(z((4, 4, 4), np.int32))
+    if entry == "highlight_object":
+        from langsplat4d_torch.preprocess.image_prompt import (
+            highlight_object)
+        return highlight_object(z((4, 4, 3), np.uint8), z((4, 4), bool))
+    if entry == "encode_feature":
+        from langsplat4d_torch.preprocess.video_features import (
+            encode_feature)
+        return encode_feature(str(tmp_path), "f", str(tmp_path), None)
     return synth.realistic_gaussians(10)
 
 
@@ -240,7 +260,8 @@ def _call_without_device(entry, tmp_path):
     "from_arrays", "realistic_gaussians", "create_from_pcd",
     "mean_knn_dist2", "training", "load_checkpoint", "ae_load_ckpt",
     "ae_from_numpy", "ae_train", "ae_test", "eval", "train_cli",
-    "render_cli"])
+    "render_cli", "mask_nms", "masks_from_stack", "highlight_object",
+    "encode_feature"])
 def test_entry_points_default_to_cuda_and_raise_without_it(
         entry, tmp_path, monkeypatch):
     """Without a device argument the entry points go to the GPU; where there
