@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare NAME=TREE [--compare ...] [--rounds 3]
-    python3 chip_smoke.py --only 25,26,27,28,29
+    python3 chip_smoke.py --only 25,26,27,28,29,30
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 With --compare it checks nothing and only times the six kernels of this
@@ -144,8 +144,8 @@ Phases, each failing the run on error:
      video split (frame 0 held against the plain version on its rows),
      `.eval` on those renders; then prepare_discrete_stage in both modes on
      phase 20's saved state, its K-Means held against the plain version;
-     last, phase A three more times, without, without and with the
-     snapshots, for its it/s with and without them in turns;
+     last, phase A twice more, without and with the snapshots, for its
+     it/s with and without them in turns (on, off, on);
  25. the port's image codec (csrc/imgcodec.cpp, host C++) against its
      numpy twins on inputs the phase writes itself: PNGs in every row
      filter, a per-row mix and libpng's adaptive choice, in grey, grey +
@@ -203,16 +203,27 @@ Phases, each failing the run on error:
      `langsplat4d_torch.ae.train` (5 epochs) and `.ae.test` on the written
      *_f.npy; every stage again with device="cpu" in this process: NMS
      indices, tiles, seg maps, prompt PNGs and video-feature files equal,
-     the fp16 features within 1e-3; ms a frame per stage.
+     the fp16 features within 1e-3; ms a frame per stage;
+ 30. (run after 24) phase B resumed from the JAX package's checkpoint
+     layout: phase 24's phase-A checkpoint written again as the JAX
+     package's pickle of numpy arrays (`write_jax_checkpoint`; the card
+     has no jax), then `python -m langsplat4d_torch.train` resumes
+     fine-lang-discrete for RESUME_ITERS iterations from each file: the
+     states the two loads give, the losses at every iteration and the final
+     states bit-equal, kernels 1 and 2 launched in each run; the render CLI
+     over the video split on the result, frame 0 against the plain
+     version; it/s and the load's wall ms of each layout.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
 phase 20's loop as `loop_launches`, in phase 23's render as
 `eval_launches`, in phase 24's CLIs as `cli_launches`, in phase 26's as
-`neu3d_launches`, and in phase 28's bands as `band_launches` and sharded
-steps as `mesh_launches`, summed over the ranks), the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
-of JAX or of the JAX package. `--only 25,26,27,28,29` runs the build and
-those phases alone (26 and 28 with 19 and 22) and prints no kernels line.
+`neu3d_launches`, in phase 28's bands as `band_launches` and sharded
+steps as `mesh_launches`, summed over the ranks, and in phase 30's resume
+from the JAX layout and its render as `resume_launches`), the card's name
+and power limit, and as the last line {"ok": true, "device": {...}}.
+Imports nothing of JAX or of the JAX package. `--only 25,26,27,28,29,30`
+runs the build and those phases alone (26, 28 and 30 with 19 and 22, 30
+with phase 24's phase A) and prints no kernels line.
 """
 import argparse
 import contextlib
@@ -2537,6 +2548,34 @@ def viewer_request(cam, out, stop, port, timeout=600.0):
         out["error"] = repr(e)
 
 
+def cli_argv(dev, root, iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None):
+    """Phase 24's train CLI inputs on phase 19's scene: writes the config
+    overlay (configs/hypernerf/default.py, `hidden` over its network) and
+    returns (model path, config file, the flags every run shares, phase A's
+    depth flags, phase A's argv, the path of phase A's checkpoint at
+    fine-base's last iteration)."""
+    model_path = os.path.join(root, "cli_model")
+    cfg_file = os.path.join(root, "cli_config.py")
+    with open(cfg_file, "w") as f:
+        f.write(f"_base_ = "
+                f"{os.path.join(REPO, 'configs', 'hypernerf', 'default.py')!r}"
+                "\nwatchdog_execv = False   # a trip fails the run\n"
+                + (f"ModelHiddenParams = {hidden!r}\n" if hidden else ""))
+    device = [] if dev.type == "cuda" else ["--device", str(dev)]
+    base = ["--source_path", root, "--model_path", model_path,
+            "--expname", "smoke_cli", "--configs", cfg_file,
+            "--language_features_name", f"language_features_dim{AE_ENC[-1]}",
+            "--feature_level", "1"] + device
+    flags = dict(zip(("coarse_base_iterations", "coarse_lang_iterations",
+                      "fine_base_iterations"), iters[:3]), **cuts)
+    flags = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+    fb_last = iters[2]
+    argv_a = base + flags + ["--fine_lang_iterations", "0", "--no_dlang", "0",
+                            "--checkpoint_iterations", str(fb_last)]
+    ckpt = os.path.join(model_path, f"chkpnt_fine-base_{fb_last}.pth")
+    return model_path, cfg_file, base, flags, argv_a, ckpt
+
+
 def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
               cuts=LOOP_CUTS, hidden=None, discrete_iters=DISCRETE_ITERS):
     """Phase 24: scripts/train_eval.sh's flow through the port's CLIs (each
@@ -2573,13 +2612,9 @@ def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
     from langsplat4d_torch.train import loop
     from langsplat4d_torch.train.trainstate import make_train_state
     on_card = dev.type == "cuda"
-    model_path = os.path.join(root, "cli_model")
-    cfg_file = os.path.join(root, "cli_config.py")
-    with open(cfg_file, "w") as f:
-        f.write(f"_base_ = "
-                f"{os.path.join(REPO, 'configs', 'hypernerf', 'default.py')!r}"
-                "\nwatchdog_execv = False   # a trip fails the run\n"
-                + (f"ModelHiddenParams = {hidden!r}\n" if hidden else ""))
+    model_path, cfg_file, base, flags, argv_a, ckpt = cli_argv(
+        dev, root, iters, cuts, hidden)
+    device = [] if on_card else ["--device", str(dev)]
     names = ("composite_tiles", "composite_tiles_backward",
              "composite_stream", "composite_stream_chunks",
              "composite_stream_chunks_backward")
@@ -2589,19 +2624,8 @@ def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
     saved_env = {k: os.environ.get(k) for k in ("ExpsDir",
                                                 "use_discrete_lang_f")}
     os.environ["ExpsDir"] = os.path.join(root, "exps")
-    device = [] if on_card else ["--device", str(dev)]
-    base = ["--source_path", root, "--model_path", model_path,
-            "--expname", "smoke_cli", "--configs", cfg_file,
-            "--language_features_name", f"language_features_dim{AE_ENC[-1]}",
-            "--feature_level", "1"] + device
-    flags = dict(zip(("coarse_base_iterations", "coarse_lang_iterations",
-                      "fine_base_iterations"), iters[:3]), **cuts)
-    flags = [a for k, v in flags.items() for a in (f"--{k}", str(v))]
     print("[24] phase A depth cuts: " + " ".join(flags)
           + " (fine_lang_iterations 0 as scripts/train_eval.sh)", flush=True)
-    fb_last = iters[2]
-    argv_a = base + flags + ["--fine_lang_iterations", "0", "--no_dlang", "0",
-                            "--checkpoint_iterations", str(fb_last)]
     port = free_port()
     scene = loop.Scene(root)
     reply, stop = {}, threading.Event()
@@ -2657,7 +2681,6 @@ def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
                                              "training_output_img"))
         if len(shots) < len(snaps) or len(grid_files) != len(grids):
             raise AssertionError("the snapshots or grids were not written")
-        ckpt = os.path.join(model_path, f"chkpnt_fine-base_{fb_last}.pth")
         if not os.path.isfile(ckpt):
             raise AssertionError(f"no checkpoint {ckpt}")
         for stage in ("coarse-base", "coarse-lang", "fine-base"):
@@ -2819,9 +2842,10 @@ def rates_of(probe):
 def snapshot_turns(dev, root, argv_a, cfg_file, model_path, first):
     """Phase A's it/s with and without the preset's render-process
     snapshots, in turns: the phase's own run (`first`, snapshots on, the
-    viewer served), then three more through the train CLI with the same
-    flags and no viewer (--port -1): off, off, on, each into its own model
-    path. The debug grid is on in all four."""
+    viewer served), then two more through the train CLI with the same
+    flags and no viewer (--port -1): off, then on, each into its own model
+    path (three off, off, on until phase 30 came). The debug grid is on in
+    all three."""
     from langsplat4d_torch.train import __main__ as train_cli
     off_cfg = os.path.join(root, "cli_config_off.py")
     with open(off_cfg, "w") as f:
@@ -2831,7 +2855,7 @@ def snapshot_turns(dev, root, argv_a, cfg_file, model_path, first):
     os.environ["ExpsDir"] = os.path.join(root, "exps")
     turns = [(True, first)]
     try:
-        for i, on in enumerate((False, False, True)):
+        for i, on in enumerate((False, True)):
             argv = [os.path.join(root, f"cli_turn{i}") if a == model_path
                     else (cfg_file if on else off_cfg) if a == cfg_file
                     else a for a in argv_a] + ["--port", "-1"]
@@ -2850,11 +2874,253 @@ def snapshot_turns(dev, root, argv_a, cfg_file, model_path, first):
     for stage in first:
         on = [r[stage] for o, r in turns if o]
         off = [r[stage] for o, r in turns if not o]
-        print(f"[24] phase A {stage} in turns (on, off, off, on), it/s: "
+        print(f"[24] phase A {stage} in turns (on, off, on), it/s: "
               + ", ".join(f"{r[stage]:.3f}" for _, r in turns)
               + f"; snapshots on mean {np.mean(on):.3f}, off mean "
               f"{np.mean(off):.3f}: on/off {np.mean(on) / np.mean(off):.4f}",
               flush=True)
+
+
+RESUME_ITERS = 50       # phase 30's fine-lang-discrete iterations a run
+
+
+def resume_phase(dev, root, smi, iters=RESUME_ITERS, a_iters=CLI_STAGE_ITERS,
+                 hidden=None):
+    """Phase 30: phase B of scripts/train_eval.sh resumed from the JAX
+    package's checkpoint layout. Phase 24's phase-A checkpoint (the port's
+    torch file) is written again in the JAX layout (`write_jax_checkpoint`:
+    the card has no jax), then `python -m langsplat4d_torch.train` resumes
+    fine-lang-discrete from each file, cut to `iters` iterations and saved
+    there, each into its own model path: the two runs' losses at every
+    iteration, the states that the two loads give, and the final states
+    must be bit-equal, and kernels 1 and 2 must launch in each. Then
+    `python -m langsplat4d_torch.render` renders the JAX-file run's model
+    in lang mode over the video split, frame 0's composite held against
+    the plain version. Prints it/s and the checkpoint load's wall ms of
+    each run beside the card's name and power limit. Returns the kernels'
+    launches in the JAX-file run and its render."""
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.render import __main__ as render_cli
+    from langsplat4d_torch.train import __main__ as train_cli
+    from langsplat4d_torch.train import loop
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    model_path, cfg_file, base, _, _, port_ckpt = cli_argv(
+        dev, root, a_iters, hidden=hidden)
+    device = [] if on_card else ["--device", str(dev)]
+    state, payload = loop.load_checkpoint(port_ckpt, device="cpu")
+    jax_ckpt = write_jax_checkpoint(
+        state, os.path.join(root, "chkpnt_jax_layout.pth"),
+        payload["iteration"], payload["stage"])
+    print(f"[30] phase 24's checkpoint ({state.num_active} Gaussians of "
+          f"{state.capacity} rows, Adam step {state.opt.step}) written in "
+          f"the JAX package's layout: "
+          f"{os.path.getsize(jax_ckpt) / 2**20:.1f} MB", flush=True)
+    del state
+    kernels = ("composite_tiles", "composite_tiles_backward",
+               "composite_stream_chunks", "composite_stream_chunks_backward")
+    runs = {}
+    saved_env = {k: os.environ.get(k) for k in ("ExpsDir",
+                                                "use_discrete_lang_f")}
+    os.environ["ExpsDir"] = os.path.join(root, "exps")
+    os.environ["use_discrete_lang_f"] = "t"
+    load = loop.load_checkpoint
+    try:
+        for layout, ckpt in (("torch", port_ckpt), ("jax", jax_ckpt)):
+            out = os.path.join(root, f"resume_{layout}")
+            argv = [out if a == model_path else a for a in base] + [
+                "--fine_lang_iterations", "0", "--resume_from_final_stage",
+                "1", "--init_from_stage", "fine-base", "--start_checkpoint",
+                ckpt, "--save_iterations", str(iters), "--port", "-1"]
+            run = runs[layout] = {"out": out}
+
+            def kept(path, device=None, dcfg=None, _run=run):
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, pl = load(path, device=device, dcfg=dcfg)
+                if on_card:
+                    torch.cuda.synchronize()
+                _run["load_ms"] = (time.perf_counter() - t0) * 1e3
+                _run["loaded"] = state_tensors(st)
+                return st, pl
+
+            for n in kernels:
+                getattr(C, n).launches = 0
+            with LoopProbe(dev) as probe:
+                whole = loop.scene_reconstruction
+
+                def cut(cfg, scene_, state_, dcfg, stage, joint, n_it, timer,
+                        **kw):
+                    return whole(cfg, scene_, state_, dcfg, stage, joint,
+                                 min(n_it, iters), timer, **kw)
+                loop.scene_reconstruction, loop.load_checkpoint = cut, kept
+                try:
+                    run["state"] = train_cli.main(argv)
+                finally:
+                    loop.scene_reconstruction = whole
+                    loop.load_checkpoint = load
+            (stage, n_it, secs), = probe.stages
+            run.update(stage=stage, n_it=n_it, secs=secs,
+                       losses=probe.losses(stage),
+                       launches={n: getattr(C, n).launches for n in kernels})
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for layout, run in runs.items():
+        print(f"[30] {layout} layout: load {run['load_ms']:.1f} ms wall; "
+              f"{run['stage']} {run['n_it']} iterations in "
+              f"{run['secs']:.2f} s, {run['n_it'] / run['secs']:.3f} it/s; "
+              f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                       run["launches"].items())
+              + f"; loss first {run['losses'][0]:.6f}, last "
+              f"{run['losses'][-1]:.6f}", flush=True)
+        if (run["stage"] != "fine-lang-discrete" or run["n_it"] != iters
+                or len(run["losses"]) != iters
+                or not np.isfinite(run["losses"]).all()):
+            raise AssertionError(f"the {layout} run did not train the "
+                                 f"discrete stage")
+        if on_card and not (run["launches"]["composite_tiles"]
+                            and run["launches"]["composite_tiles_backward"]):
+            raise AssertionError(f"kernels 1 and 2 did not launch in the "
+                                 f"{layout} run")
+    t, j = runs["torch"], runs["jax"]
+    loaded = differing(j["loaded"], t["loaded"])
+    final = differing(state_tensors(j["state"]), state_tensors(t["state"]))
+    same_losses = j["losses"] == t["losses"]
+    print(f"[30] the two layouts' runs: loaded states bit-equal "
+          f"{not loaded}, losses at all {iters} iterations bit-equal "
+          f"{same_losses}, final states bit-equal {not final}"
+          + (f" (differ: {(loaded or final)[:5]})" if loaded or final
+             else ""), flush=True)
+    if loaded or final or not same_losses:
+        raise AssertionError("the resume from the JAX layout differs from "
+                             "the resume from the port's file")
+    del t["state"], j["state"], t["loaded"], j["loaded"]
+
+    argv_r = ["--model_path", j["out"], "--source_path", root,
+              "--configs", cfg_file, "--mode", "lang",
+              "--load_stage", "fine-lang-discrete", "--skip_train",
+              "--skip_test", "--novideo", "1", "--noimage", "1"] + device
+    C.composite_stream.launches = 0
+    with FirstComposite() as first:
+        fps = render_cli.main(argv_r)["video"]
+    render_launches = C.composite_stream.launches
+    first.hold(30, "the render CLI's frame 0 of the resumed model")
+    maps = os.path.join(j["out"], "video_lang", f"ours_{iters}",
+                        "renders_npy")
+    names = sorted(os.listdir(maps))
+    m0 = np.load(os.path.join(maps, names[0]))
+    print(f"[30] render CLI: {len(names)} video frames in lang mode at "
+          f"fine-lang-discrete, FPS {fps:.3f}, composite_stream launches "
+          f"{render_launches}; {smi}", flush=True)
+    print(f"[30] the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if (m0.shape[-1] != AE_ENC[-1] or not np.isfinite(m0).all()
+            or (on_card and render_launches < len(names))):
+        raise AssertionError("the render CLI wrote bad maps of the resumed "
+                             "model")
+    return dict(j["launches"], composite_stream=render_launches)
+
+
+def phase_a(dev, root, iters=CLI_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None):
+    """Phase 24's phase A alone, through the train CLI without the viewer
+    (for `--only 30`); returns the path of its checkpoint."""
+    from langsplat4d_torch.train import __main__ as train_cli
+    *_, argv_a, ckpt = cli_argv(dev, root, iters, cuts, hidden)
+    saved = os.environ.get("ExpsDir")
+    os.environ["ExpsDir"] = os.path.join(root, "exps")
+    try:
+        train_cli.main(argv_a + ["--port", "-1"])
+    finally:
+        if saved is None:
+            os.environ.pop("ExpsDir", None)
+        else:
+            os.environ["ExpsDir"] = saved
+    print(f"[30] phase A through the train CLI: {ckpt}", flush=True)
+    return ckpt
+
+
+def state_tensors(state):
+    """A TrainState's tensors by name (leaves, Adam moments, buffers) and
+    its counts, copied."""
+    out = {"leaf " + k: v.detach().clone() for k, v in state.leaves().items()}
+    out.update({"m " + k: v.clone() for k, v in state.opt.m.items()})
+    out.update({"v " + k: v.clone() for k, v in state.opt.v.items()})
+    for k in ("max_radii2d", "xyz_gradient_accum", "denom",
+              "deformation_table", "deformation_accum", "aabb"):
+        out[k] = getattr(state, k).clone()
+    out["counts"] = torch.tensor([state.opt.step, state.num_active,
+                                  state.active_sh_degree])
+    return out
+
+
+def differing(a, b):
+    """The names whose tensors are not bit-equal between two
+    `state_tensors`."""
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].shape != b[k].shape
+                  or not torch.equal(a[k].cpu(), b[k].cpu()))
+
+
+def jax_deform_tree(sd):
+    """The port's deformation leaves by state-dict key -> the JAX package's
+    deform pytree (init_deform_params' layout: Linear layers as {"w": [in,
+    out], "b": [out]}, planes [C, H, W]) as numpy; the inverse of
+    interop.params_from_jax."""
+    tree, grids = {}, {}
+    for key, v in sd.items():
+        a = v.detach().cpu().numpy()
+        parts = key.split(".")
+        if parts[:3] == ["deformation_net", "grid", "grids"]:
+            grids[int(parts[3]), int(parts[4])] = a[0]
+            continue
+        if parts[:2] == ["deformation_net", "empty_voxel"]:
+            tree["empty_voxel"] = a[0]
+            continue
+        name, j, what = parts[-3:]
+        first = 0 if name in ("timenet", "feature_out") else 1
+        layers = tree.setdefault(name, {})
+        layer = layers.setdefault((int(j) - first) // 2, {})
+        layer["w" if what == "weight" else "b"] = (a.T if what == "weight"
+                                                   else a)
+    for name in [k for k in tree if k != "empty_voxel"]:
+        tree[name] = [tree[name][i] for i in range(len(tree[name]))]
+    scales = 1 + max(s for s, _ in grids)
+    tree["grid"] = {"grids": [
+        [grids[s, p] for p in range(1 + max(q for t, q in grids if t == s))]
+        for s in range(scales)]}
+    return tree
+
+
+def write_jax_checkpoint(state, path, iteration, stage):
+    """The port's TrainState written in the JAX package's checkpoint layout
+    (langsplat4d/train/loop.py save_checkpoint: one pickle of numpy arrays,
+    params and both Adam moments with the Gaussian leaves and the "deform"
+    subtree), for a card whose host has no jax; returns `path`."""
+    import pickle
+    from langsplat4d_torch.train.trainstate import GAUSSIAN_KEYS
+
+    def tree(leaves):
+        out = {k: leaves[k].detach().cpu().numpy() for k in GAUSSIAN_KEYS}
+        out["deform"] = jax_deform_tree(
+            {k[len("deform."):]: v for k, v in leaves.items()
+             if k.startswith("deform.")})
+        return out
+    payload = dict(
+        iteration=iteration, stage=stage, params=tree(state.leaves()),
+        opt_m=tree(state.opt.m), opt_v=tree(state.opt.v),
+        opt_step=int(state.opt.step), num_active=int(state.num_active),
+        **{k: getattr(state, k).detach().cpu().numpy() for k in (
+            "max_radii2d", "xyz_gradient_accum", "denom",
+            "deformation_table", "deformation_accum", "aabb")},
+        active_sh_degree=int(state.active_sh_degree))
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return path
 
 
 def plane_grad_cases():
@@ -5459,10 +5725,11 @@ def main():
     ap.add_argument("--compare", action="append", default=[],
                     metavar="NAME=TREE")
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--only", default="", metavar="25,26,27,28,29",
-                    help="run the build and only these of phases 25-29 (26 "
-                         "and 28 with 19 and 22, whose scene and "
-                         "autoencoder they use), without the kernels line")
+    ap.add_argument("--only", default="", metavar="25,26,27,28,29,30",
+                    help="run the build and only these of phases 25-30 (26, "
+                         "28 and 30 with 19 and 22, whose scene and "
+                         "autoencoder they use, 30 with phase 24's phase "
+                         "A), without the kernels line")
     args = ap.parse_args()
     # warnings only, as before the CLIs of phases 22-23 (which add an INFO
     # handler to stdout where there is none): the output keeps its phases
@@ -5522,14 +5789,18 @@ def main():
                                    "preprocess")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {25, 26, 27, 28, 29}:
-            raise SystemExit("--only takes phases among 25, 26, 27, 28, 29")
+        if not only <= {25, 26, 27, 28, 29, 30}:
+            raise SystemExit("--only takes phases among 25, 26, 27, 28, 29, "
+                             "30")
         if 25 in only:
             codec_phase()
-        if only & {26, 28}:
+        if only & {26, 28, 30}:
             shutil.rmtree(scene_root, ignore_errors=True)
             scene_phase(dev, scene_root)
             ae = ae_phase(dev, scene_root)
+        if 30 in only:
+            phase_a(dev, scene_root)
+            resume_phase(dev, scene_root, smi)
         if 26 in only:
             neu3d_phase(dev, neu3d_root, ae)
         if 28 in only:
@@ -5812,6 +6083,14 @@ def main():
     torch.cuda.empty_cache()
 
     stamp("24")
+    # 30. phase B resumed from phase 24's checkpoint in the JAX package's
+    # layout, against the resume from the port's own file; the render CLI
+    resume_launches = resume_phase(dev, scene_root, smi)
+    for e in entries:
+        e["resume_launches"] = resume_launches.get(e["name"], 0)
+    torch.cuda.empty_cache()
+
+    stamp("30")
     # 28. the multi-rank path on the card: bands in both exchanges, the
     # sharded step, the CLIs on two ranks (phase 19's scene, 22's export)
     band_launches, mesh_launches, band_err, mesh_err = mesh_phase(

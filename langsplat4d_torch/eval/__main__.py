@@ -6,7 +6,8 @@ in video mode), decodes every level of a frame at once through the language
 autoencoder on the device, scores the prompts' relevancy and reports the
 mean IoU (and vIoU / accuracy for time-sensitive queries): the same flags,
 env knobs, feature layout, `Mean IoU: <x>` line and CSVs as the JAX CLI.
-Text embeddings come from a precomputed .npz cache (--text_embedding_cache).
+Text embeddings come from a precomputed .npz cache (--text_embedding_cache)
+or from CLIP's text tower in a local directory (--clip_model_path).
 Runs on the GPU unless `--device cpu`.
 """
 import argparse
@@ -77,6 +78,9 @@ def parse_args(argv=None):
     p.add_argument("--low_thresh_filter", type=int, default=None)
     p.add_argument("--text_embedding_cache", type=str, default=None,
                    help=".npz of prompt->CLIP text embedding (+negatives)")
+    p.add_argument("--clip_model_path", type=str, default=None,
+                   help="a local copy of the CLIP model whose text tower "
+                        "encodes the prompts where no cache is given")
     p.add_argument("--feat_root", type=str, default=None,
                    help="override the rendered-feature root directory")
     p.add_argument("--device", type=str, default=None,
@@ -192,7 +196,8 @@ def main(argv=None):
         for j, idx in enumerate(eval_index_list):
             sem_feats[i][j] = np.load(paths[im_id2imidx[idx]])
 
-    embedder = make_text_embedder(args.text_embedding_cache)
+    embedder = make_text_embedder(args.text_embedding_cache,
+                                  args.clip_model_path, device=device)
     neg_embeds = embedder.negatives()
 
     # use_vae checkpoints load as VanillaVAE (load_ckpt sniffs fc_mu)

@@ -22,8 +22,13 @@ the snapshots, the debug grid, the viewer), from the whole state, so the
 files are the single-rank format; the stream switch is decided once for
 all ranks.
 
-Intended removals: orbax checkpoints (torch files instead) and the JAX
-package's stream tuning and audit (the port's stream has no static size).
+Checkpoints: the port writes torch files, and `load_checkpoint` reads those
+and the JAX package's pickle checkpoints (train/ckpt_jax.py), so phase B
+resumes from a phase A that either package trained.
+
+Intended removals: orbax checkpoints (an orbax directory raises) and the
+JAX package's stream tuning and audit (the port's stream has no static
+size).
 """
 from __future__ import annotations
 
@@ -62,6 +67,8 @@ from langsplat4d_torch.parallel.mesh import (Mesh, apply_unsharded,
 from langsplat4d_torch.render.pipeline import binning_report, render
 from langsplat4d_torch.render.raster import CameraParams, RasterSettings
 from langsplat4d_torch.train import densify as D
+from langsplat4d_torch.train.ckpt_jax import (checkpoint_format,
+                                             load_jax_checkpoint)
 from langsplat4d_torch.train.optim import AdamState, LRConfig
 from langsplat4d_torch.train.step import (Batch, StepConfig, eval_step,
                                           materialize_batch, pack_cam_rows,
@@ -284,11 +291,22 @@ def save_checkpoint(state: TrainState, iteration: int, stage: str,
     return path
 
 
-def load_checkpoint(path: str, device=None) -> Tuple[TrainState, dict]:
-    """A `save_checkpoint` file -> (TrainState on `device`, the payload).
-    `device=None` is the current CUDA device (an error where there is
-    none)."""
+def load_checkpoint(path: str, device=None,
+                    dcfg: Optional[DeformConfig] = None
+                    ) -> Tuple[TrainState, dict]:
+    """A checkpoint -> (TrainState on `device`, the payload), whichever
+    package wrote it: the port's `save_checkpoint` file (a zip, read as
+    torch.save wrote it, its DeformConfig from the file) or the JAX
+    package's pickle (train/ckpt_jax.py; it holds no DeformConfig, so
+    `dcfg` is required there). The JAX package's orbax directories, and
+    anything else, raise naming the path. `device=None` is the current CUDA
+    device (an error where there is none)."""
     device = resolve_device(device)
+    if checkpoint_format(path) == "jax":
+        if dcfg is None:
+            raise ValueError(f"{path}: the JAX package's checkpoint holds no "
+                             f"DeformConfig; pass the config's as dcfg")
+        return load_jax_checkpoint(path, dcfg, device=device)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     dcfg = DeformConfig(**payload["dcfg"])
     net = DeformNetwork(dcfg)
@@ -1069,9 +1087,10 @@ def training(cfg: Config, device=None) -> TrainState:
     timer.start()
     opt, ex = cfg.optim, cfg.extras
     if ex.resume_from_final_stage == 1:
-        state, _ = load_checkpoint(ex.start_checkpoint, device=device)
         dcfg = DeformConfig.from_config(cfg.hidden, cfg.runtime,
                                         max_sh_degree=cfg.model.sh_degree)
+        state, _ = load_checkpoint(ex.start_checkpoint, device=device,
+                                   dcfg=dcfg)
         state = prepare_discrete_stage(cfg, state, dcfg,
                                        init_from_stage=ex.init_from_stage)
         return scene_reconstruction(cfg, scene, _shard(state, mesh), dcfg,

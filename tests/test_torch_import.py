@@ -58,6 +58,7 @@ SLICE = (
     "langsplat4d_torch.train.trainstate",
     "langsplat4d_torch.train.step",
     "langsplat4d_torch.train.densify",
+    "langsplat4d_torch.train.ckpt_jax",
     "langsplat4d_torch.train.loop",
     "langsplat4d_torch.train.__main__",
     "langsplat4d_torch.render.__main__",
@@ -90,7 +91,7 @@ def test_port_never_imports_jax():
     """In a clean interpreter (this process has jax loaded by conftest) whose
     import system refuses jax, flax and the JAX package outright: import the
     port and every one of its modules, and load the golden checkpoint through the
-    port's own PLY reader."""
+    port's own PLY reader. No module imports transformers."""
     code = textwrap.dedent("""
         import sys
 
@@ -114,6 +115,8 @@ def test_port_never_imports_jax():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                             "langsplat4d"))
         assert not bad, bad
+        # the eval's text tower imports transformers when it is built
+        assert "transformers" not in sys.modules
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
