@@ -25,6 +25,11 @@ Phases, each failing the run on error:
      render_set wrote; kernel and plain times at 32- and 16-px tiles. At
      32 px the bound charges the pairs that the quadrant scheme evaluates,
      counted by its plain twin, whose image must be the plain version's;
+     then the frame's roofline (langsplat4d_torch/utils/roofline.py) as
+     one `[5r]` JSON line: each stage of phase 4 against its bound on the
+     card's peaks, from frame 0's pairs at 32 px, and mfu_fp32 over phase
+     3's frame time, with the card's name and power limit; a stage faster
+     than its bound, or mfu_fp32 outside (0, 1), fails;
   6. the ptxas figures (registers, shared memory, spills) of the kernels
      and the blocks an SM holds of each, reckoned from them; a spill in any
      kernel fails, and so does a stack frame (an array in local memory) in
@@ -45,7 +50,9 @@ Phases, each failing the run on error:
      kernels on step 1's rows. The forward's bound charges the pairs that
      the kernel's scheme (the tile test drops rows no pixel of the tile
      blends) evaluates, counted by its plain twin, whose output must be the
-     plain version's with the same live pairs;
+     plain version's with the same live pairs; then the list step's
+     roofline, as phase 5's, in one `[10r]` JSON line against these stage
+     times and phase 8's ms a step;
  11. torch.profiler over five steps: device kernels per step and the
      device's busy share (taken at the end of the run, with phase 15's
      profile, so that no timing is taken with the profiler attached);
@@ -85,7 +92,7 @@ Phases, each failing the run on error:
  22. (run after 19, before 20) the language autoencoder at full width
      through `langsplat4d_torch.ae.train` and `.ae.test` (their `main`):
      encoder 256-128-64-32-3, decoder 16-32-64-128-256-256-512, on the
-     scene's 512-d features, 200 epochs; the export,
+     scene's 512-d features, AE_EPOCHS epochs; the export,
      `language_features_dim3`, is what phase 20 trains on; ms per train
      batch, the eval loss, the export's rows/s;
  20. training(cfg) on that scene with configs/hypernerf/default.py at full
@@ -159,8 +166,8 @@ Phases, each failing the run on error:
      from phase 3's 200k Gaussians with Neu3D's deformation, 100k initial
      points, 3-d language ground truth under the names the loader asks
      for), `python -m langsplat4d_torch.train` with configs/neu3d/default.py
-     at full width (batch 4) at 200/60/200/60 iterations with phase 20's
-     densification cuts, `.render --mode
+     at full width (batch 4) at NEU3D_STAGE_ITERS with densification
+     cuts that fire once in both base stages, `.render --mode
      lang` over the test split (frame 0 held against the plain version on
      its rows), `.eval --dataset_type neu3d` on test_lang; it/s per stage,
      decode ms a frame, the batch build on misses against hits, and
@@ -176,17 +183,18 @@ Phases, each failing the run on error:
      on one device; they take turns on the card, so nothing here is a
      speed-up): kernel 3 in tile-row bands (`tile_row0`) on synthetic
      streams against its plain version and bit-equal to the whole image's
-     launch; the bench workload's first 10 frames through render_set with
+     launch; BAND_FRAMES frames of the bench orbit through render_set with
      gaussian_shards 2 and 3 (an uneven 11/11/10 split of 32 tile rows) in
      both exchanges, rank 0's stitched frames bit-equal to the one-process
      render_set's, kernel 3 launched once a band a frame and its first
      band held against the plain version, per-rank ms a frame by stage,
      the bytes each rank sends and its peak memory; both exchanges on a
      world of one rank under NCCL, bit-equal; phase 8's step workload with
-     two cameras on a data 2 x gauss 2 mesh for 20 steps, after each the
-     gathered parameters and Adam moments held against the one-process
-     step (rtol 2e-3 / atol 2e-4 of each leaf's largest entry), kernels 1
-     and 2 of the first step against their plain versions, then densify
+     two cameras on a data 2 x gauss 2 mesh for MESH_STEPS steps, after
+     each the gathered parameters and Adam moments held against the
+     one-process step (rtol 2e-3 / atol 2e-4 of each leaf's largest
+     entry), kernels 1 and 2 of the first step against their plain
+     versions, then densify
      and prune under the mesh against one process; last, the train CLI
      under `torch.distributed.run` on 2 ranks with gaussian_shards 2 on
      phase 19's scene (MESH_CLI_ITERS), and the render CLI on 2 ranks,
@@ -243,6 +251,13 @@ import time
 
 import numpy as np
 import torch
+
+from langsplat4d_torch.utils.roofline import (backward_ops, bound,
+                                              composite_model, deform_flops,
+                                              emit_sort_model, forward_ops,
+                                              frame_report, gather_model,
+                                              preprocess_model,
+                                              train_step_model)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TOL = 3e-5          # the repo's kernel bound (tests/test_pallas_composite.py)
@@ -347,49 +362,34 @@ def function_resources(log):
     return {k: tuple(v) for k, v in found.items()}
 
 
-# Published peaks of one H100 SXM at its full 700 W: HBM bytes/s and float32
-# operations/s outside the tensor cores (the compositors are float32 vector
-# code with one expf per pair).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-
-
-ALPHA_OPS = 20   # one evaluated (Gaussian, pixel) pair: the power chain
-                 # (5 fma = 10), + ln_op, expf (counted as 8), min
-
-
-def forward_ops(evaluated, live, c):
-    """float32 operations the forward needs for `evaluated` (Gaussian,
-    pixel) pairs of which `live` are blended: every evaluated pair its alpha
-    (ALPHA_OPS); a live one besides 1 - alpha, T * (1 - alpha), alpha * T,
-    the alpha sum (4) and the c feature fmas (2c). A pair skipped by
-    power > 0 or alpha < 1/255 needs none of the latter."""
-    return evaluated * ALPHA_OPS + live * (4 + 2 * c)
-
-
-def backward_ops(evaluated, live, c):
-    """The backward's: every evaluated pair its alpha; a live one besides
-    1 - alpha and T * (1 - alpha) (2), phi (2c + 1), alpha * T, prefix, S,
-    d_alpha, da (9), five basis products, the 6 + c sums over pixels (one
-    add per pair each) and the c products w * g_c."""
-    return evaluated * ALPHA_OPS + live * (2 + (2 * c + 1) + 9 + 5
-                                           + (6 + c) + c)
-
-
-def bound(n_bytes, n_ops):
-    """The least time in ms the card could take: the larger of the bytes
-    over the memory rate and the operations over the float32 rate. ->
-    (ms, "bytes" or "operations", both times as text)."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
-    parts = (f"{n_bytes / 1e6:.1f} MB in {t_bytes:.4f} ms, "
-             f"{n_ops / 1e9:.3f} G operations in {t_ops:.4f} ms")
-    return ((t_bytes, "bytes", parts) if t_bytes >= t_ops
-            else (t_ops, "operations", parts))
-
 # Config().runtime.render_tile_size of the JAX package's config, restated
 # because this script imports nothing of that package
 RENDER_TILE_SIZE = 32
+
+
+def deform_widths(dcfg):
+    """The roofline's deformation widths of a DeformConfig."""
+    return dict(out_dim=dcfg.kplanes_out_dim, n_scales=len(dcfg.multires),
+                net_width=dcfg.net_width, defor_depth=dcfg.defor_depth,
+                lang_dim=dcfg.lang_dim,
+                sh_coeffs=3 * (dcfg.max_sh_degree + 1) ** 2)
+
+
+def print_roofline(phase, stages, measured_ms, frame_ms, smi):
+    """The roofline (langsplat4d_torch/utils/roofline.py) of `stages`
+    against their measured times and the whole frame's or step's, printed
+    as one JSON line with the card's name and power limit. It raises where
+    a measured time lies below its bound, and where mfu_fp32 is not in
+    (0, 1)."""
+    rep = frame_report(stages, measured_ms, frame_ms)
+    rep["card"] = smi
+    print(f"[{phase}] " + json.dumps(rep), flush=True)
+    if set(measured_ms) - {s["stage"] for s in rep["stages"]}:
+        raise AssertionError(f"[{phase}] a measured stage is not modelled")
+    if not 0 < rep["mfu_fp32"] < 1:
+        raise AssertionError(f"[{phase}] mfu_fp32 {rep['mfu_fp32']} is not "
+                             f"in (0, 1)")
+    return rep
 
 
 def synthetic_stream(tiles_x, tiles_y, tile_size, seg_lens, generator,
@@ -959,12 +959,14 @@ class Marks:
                 for i, n in enumerate(self.names)}
 
 
-def staged_step(cfg, state, batch, bg, plain=False, update=False):
+def staged_step(cfg, state, batch, bg, plain=False, update=False,
+                stats=None):
     """One training step of the workload, stage by stage, with the
     compositor's pieces called directly instead of through autograd (the
     same calls `CompositeCV` or, with `stream_train`, `StreamCV` makes), so
     that each stage can be timed and the kernels' inputs and outputs kept.
-    `plain` runs the kernels' plain versions instead; `update` applies
+    `plain` runs the kernels' plain versions instead, the forward filling
+    `stats` with its pair counts where one is given; `update` applies
     Adam. Returns a dict with the loss, the rows, their bounds (the lists'
     counts or the stream's starts), g_out and total the kernels saw, the
     gradient of the packed rows, the leaves' gradients and the stage
@@ -1003,9 +1005,10 @@ def staged_step(cfg, state, batch, bg, plain=False, update=False):
     cam = CameraParams(*[t[0] for t in batch.cams])
     m = Marks(state.device)
 
-    m.mark("deform+preprocess")
+    m.mark("deform")
     a = prepare_attributes(cfg.dcfg, cfg.stage, batch.times[0], gs,
                            state.deform, state.aabb)
+    m.mark("preprocess")
     prep = preprocess(settings, cam, a[0], a[3], a[1], a[2], a[4], None,
                       active=gs.active_mask(), means2d_dummy=dummy)
     valid = None
@@ -1025,7 +1028,8 @@ def staged_step(cfg, state, batch, bg, plain=False, update=False):
         else:
             rows, bounds = kernel_rows(packed, index, valid)
         m.mark("forward kernel")
-        accum = fwd(rows, bounds, bg, **kw)
+        accum = fwd(rows, bounds, bg, **kw,
+                    **({} if stats is None else {"stats": stats}))
     m.mark("loss")
     out = drop_padding(accum, packed.shape[1] - 6).detach().clone(
         ).requires_grad_(True)
@@ -1120,12 +1124,15 @@ def timed_steps(cfg, state, batch, bg, steps, first_iteration):
     return ms_step, host_ms, [float(x) for x in step_losses], out
 
 
-def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
+def train_phases(dev, steps=20, stream=False, list_ms=None, smi="",
+                 **workload_kw):
     """Phases 8 to 11 on `dev`, or with `stream` phases 13 to 15, the same
     on the stream layout (a CPU device rehearses them at a small size with
     the plain versions and times nothing). `list_ms` is phase 8's step time,
-    printed beside the stream step's. Returns (the kernels' JSON entries for
-    the layout's forward and backward kernel, ms per step). The profiles
+    printed beside the stream step's. After phase 10 the list step's
+    roofline is printed with the card's name and power limit `smi`.
+    Returns (the kernels' JSON entries for the layout's forward and
+    backward kernel, ms per step). The profiles
     (phase 11, and phase 15's) are taken by the caller after every timing of
     the run, so that no timing is taken with the profiler attached."""
     from langsplat4d_torch.ops import composite as C
@@ -1136,7 +1143,6 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     names = (("composite_stream_chunks", "composite_stream_chunks_backward")
              if stream else ("composite_tiles", "composite_tiles_backward"))
     fwd, bwd = (getattr(C, n) for n in names)
-    fwd_plain, bwd_plain = (getattr(C, n + "_plain") for n in names)
 
     # 8 / 13. the main path
     state, cfg, batch, bg = train_workload(dev, stream=stream, **workload_kw)
@@ -1186,7 +1192,12 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     # plain
     state, cfg, batch, bg = train_workload(dev, stream=stream, **workload_kw)
     ker = staged_step(cfg, state, batch, bg, plain=False)
-    ref = staged_step(cfg, state, batch, bg, plain=True)
+    stats = {}
+    ref = staged_step(cfg, state, batch, bg, plain=True, stats=stats)
+    if not (torch.equal(ker["rows"], ref["rows"])
+            and torch.equal(ker["bounds"], ref["bounds"])):
+        raise AssertionError("the kernels and the plain versions were not "
+                             "given the same rows")
     if stream:
         n_valid = ker["rows"].shape[0]
         seg = ker["bounds"][1:] - ker["bounds"][:-1]
@@ -1256,11 +1267,10 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
     kw = dict(tiles_x=cfg.settings.tiles_x, tile_size=16, hard_cutoffs=True)
     rows, bounds, g_out, total = (ker[k] for k in
                                   ("rows", "bounds", "g_out", "total"))
-    stats = {}
-    # the plain versions take seconds: each is timed on one call, the one
-    # whose result is used (no warm-up)
-    fp_ms, plain_out = once_ms(lambda: fwd_plain(rows, bounds, bg,
-                                                 stats=stats, **kw))
+    # the plain versions take seconds: each is timed on its one call, phase
+    # 9's (CUDA events), on the rows the kernels are timed on
+    fp_ms, bp_ms = ref["ms"]["forward kernel"], ref["ms"]["backward kernel"]
+    plain_out = ref["accum"]
     pairs, live = stats["pair_pixels"], stats["live_pair_pixels"]
     f_pairs = pairs           # what the forward's bound charges
     if not stream:
@@ -1296,7 +1306,6 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
                     backward_ops(pairs, live, c))
     f_ms = time_ms(lambda: fwd(rows, bounds, bg, **kw), 20)
     b_ms = time_ms(lambda: bwd(rows, bounds, g_out, total, **kw), 20)
-    bp_ms, _ = once_ms(lambda: bwd_plain(rows, bounds, g_out, total, **kw))
     print(f"[{p_time}] step 1 rows {list(rows.shape)}, {f_pairs} evaluated "
           f"pair-pixels of which {live} live, {c} channels: forward kernel "
           f"{f_ms:.3f} ms (bound {f_bound[0]:.4f} by {f_bound[1]}: "
@@ -1337,6 +1346,17 @@ def train_phases(dev, steps=20, stream=False, list_ms=None, **workload_kw):
           f"backward {per_step[1]:.2f}", flush=True)
     print(f"[{p_time}] kernel / bound: forward {f_ms / f_bound[0]:.2f}, "
           f"backward {b_ms / b_bound[0]:.2f}", flush=True)
+    if not stream:
+        # 10r. the list step's roofline: step 1's pairs against phase 10's
+        # stage times and phase 8's ms a step
+        print_roofline("10r", train_step_model(
+            state.num_active, f_pairs, pairs, live, c, n_valid, pw,
+            t_n * 256, **deform_widths(cfg.dcfg)), {
+                "deform": tot["deform"], "preprocess": tot["preprocess"],
+                "composite": tot["forward kernel"],
+                "composite-bwd": tot["backward kernel"],
+                "adam+scatter": tot["scatter-add"] + tot["adam"]},
+            ms_step, smi)
     if stream:
         # both layouts in turns on this state and card: rounds of lists,
         # stream, stream, lists; a window of 10 steps after one warm-up
@@ -2091,8 +2111,9 @@ AE_DEC = (16, 32, 64, 128, 256, 256, 512)
 # the depth cut: the reference trains 100 epochs of a scene's segment
 # features, tens of thousands of rows, ~1e5 batches of 64 in all; phase
 # 19's scene has 48 x 32 rows, 24 batches an epoch, and AE_EPOCHS of them
-# (4,800 batches) fit the phase's ~30 s (300 took 34.5-45.6 s on the card)
-AE_EPOCHS = 200
+# (2,400 batches) fit the phase's ~20 s (300 took 34.5-45.6 s on the card,
+# 200 41.2 s on a slower host: the script needed its time)
+AE_EPOCHS = 100
 EVAL_FRAMES, EVAL_PROMPTS = 8, 6
 # the video search's AE (eval.py's defaults): 4096-d video features
 VIDEO_ENC = (2048, 1024, 512, 256, 128, 64, 32, 6)
@@ -2576,6 +2597,17 @@ def cli_argv(dev, root, iters=LOOP_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None):
     return model_path, cfg_file, base, flags, argv_a, ckpt
 
 
+def phase_b_argv(base, ckpt, discrete_iters=DISCRETE_ITERS):
+    """Phase 24's phase B argv: scripts/train_eval.sh's resume of the
+    discrete stage from phase A's checkpoint `ckpt`, saved at
+    `discrete_iters`, the stage's cut (the run sets use_discrete_lang_f)."""
+    return base + ["--fine_lang_iterations", "0",
+                   "--resume_from_final_stage", "1",
+                   "--init_from_stage", "fine-base",
+                   "--start_checkpoint", ckpt,
+                   "--save_iterations", str(discrete_iters)]
+
+
 def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
               cuts=LOOP_CUTS, hidden=None, discrete_iters=DISCRETE_ITERS):
     """Phase 24: scripts/train_eval.sh's flow through the port's CLIs (each
@@ -2690,11 +2722,7 @@ def cli_phase(dev, root, ae_ckpt, loop_rates=None, iters=LOOP_STAGE_ITERS,
 
         # phase B: the discrete stage from phase A's checkpoint
         os.environ["use_discrete_lang_f"] = "t"
-        argv_b = base + ["--fine_lang_iterations", "0",
-                         "--resume_from_final_stage", "1",
-                         "--init_from_stage", "fine-base",
-                         "--start_checkpoint", ckpt,
-                         "--save_iterations", str(discrete_iters)]
+        argv_b = phase_b_argv(base, ckpt, discrete_iters)
         print(f"[24] phase B depth cut: fine-lang-discrete "
               f"{discrete_iters} iterations of fine_lang_iterations 0 + "
               f"10000 (train.py:441), as tests/test_e2e.py:145-157 cuts "
@@ -4326,13 +4354,19 @@ def write_panoptic_scene(root, dev, workload, n_cams=4, frames=2,
 
 
 # phase 26: Neu3D at full width through the CLIs
-# phase 20's stage budgets cut to 200/60/200/60 and 20 frames a camera (30
-# until phase 28 came: the script needed its time); densify, prune and the
-# opacity reset still fire at 200 in both base stages
+# phase 20's stage budgets cut to 150/60/150/60 (200/60/200/60 until the
+# script ran 1288 s on a slower host) and 20 frames a camera (30 until
+# phase 28 came: the script needed its time); densify, prune and the
+# opacity reset still fire once, at the last iteration, in both base stages
 NEU3D_CAMS, NEU3D_FRAMES = 6, 20
-NEU3D_STAGE_ITERS = (200, 60, 200, 60)
+NEU3D_STAGE_ITERS = (150, 60, 150, 60)
+NEU3D_CUTS = dict(LOOP_CUTS, densify_from_iter=75, densification_interval=75,
+                  pruning_from_iter=75, pruning_interval=75,
+                  opacity_reset_interval=150)
 CACHE_TURNS_MB = (4096, 256, 256, 4096)   # the default, and ~60 of 180 frames
-# 70 / 25 until phase 28 came: the script needed its time
+# 70 / 25 until phase 28 came: the script needed its time; a turn must
+# reach the second epoch (batch 4 of 100 training frames) for the cache to
+# hit, so 25 iterations measure misses only
 CACHE_TURN_ITERS, CACHE_TURN_TIMED = 40, 15
 
 
@@ -4392,7 +4426,7 @@ def neu3d_config_file(root, hidden=None):
 
 def neu3d_phase(dev, root, ae_ckpt, workload=None, downsample=1.0,
                 cams=NEU3D_CAMS, frames=NEU3D_FRAMES, n_init=100_000,
-                iters=NEU3D_STAGE_ITERS, cuts=LOOP_CUTS, hidden=None,
+                iters=NEU3D_STAGE_ITERS, cuts=NEU3D_CUTS, hidden=None,
                 turn_iters=CACHE_TURN_ITERS, turn_timed=CACHE_TURN_TIMED):
     """Phase 26: Neu3D through the port's CLIs. `write_dynerf_scene` in
     `root` from phase 3's 200k seeded Gaussians with Neu3D's deformation
@@ -4703,18 +4737,20 @@ def formats_phase(dev, root, iters=5, hw=(48, 64), n=20_000, net_width=None):
 # spawned on the one card with gloo (NCCL refuses two ranks on one device);
 # the ranks take turns on the card, so no number here is a speed-up
 
+# frames and the CLI's depth halved, steps quartered, after the script ran
+# 1288 s on a slower host (10 frames, 20 steps, 20/10/20/10 before)
 BAND_SHARDS = (2, 3)        # 32 tile rows at 32 px: 16 + 16, 11 + 11 + 10
-BAND_FRAMES = 10
+BAND_FRAMES = 5
 BAND_TIMED = 3              # frames timed stage by stage after render_set
 MESH_SHAPE = (2, 2)         # data x gauss
-MESH_STEPS = 20
+MESH_STEPS = 5
 # the train CLI on two ranks: a further cut of phase 24's depth (at
-# 60/20/60/20 it took a third of the phase); densify and prune fire at 10
-# and 20 and the opacity reset at 15 in both base stages
-MESH_CLI_ITERS = (20, 10, 20, 10)
-MESH_CLI_CUTS = dict(densify_from_iter=5, densification_interval=10,
-                     pruning_from_iter=5, pruning_interval=10,
-                     min_points_for_prune=50_000, opacity_reset_interval=15)
+# 60/20/60/20 it took a third of the phase); densify and prune fire at 5
+# and 10 and the opacity reset at 8 in both base stages
+MESH_CLI_ITERS = (10, 5, 10, 5)
+MESH_CLI_CUTS = dict(densify_from_iter=3, densification_interval=5,
+                     pruning_from_iter=3, pruning_interval=5,
+                     min_points_for_prune=50_000, opacity_reset_interval=8)
 RANK_TIMEOUT = 600          # seconds a spawned group or a collective waits
 
 
@@ -5356,7 +5392,7 @@ def mesh_phase(dev, scene_root, smi, band_kw=None, train_kw=None,
             raise AssertionError(f"rank {r}: kernels 1-2 did not launch "
                                  "every step")
     print("[28] loss (mesh, one rank): " + ", ".join(
-        f"{a:.6f}/{b:.6f}" for a, b in r0["losses"][::5]), flush=True)
+        f"{a:.6f}/{b:.6f}" for a, b in r0["losses"]), flush=True)
     print("[28] after each step, the gathered state against one rank's, "
           "worst excess over rtol 2e-3 / atol 2e-4 of the leaf's largest "
           "entry (<= 0 holds): " + ", ".join(
@@ -5868,7 +5904,7 @@ def main():
               + ", ".join(f"{n} {tot[n]:.3f}" for n in names), flush=True)
 
         # 5. frame 0: kernel vs plain, vs render_set's output; timings
-        timing = {}
+        timing, work = {}, {}
         for ts in (RENDER_TILE_SIZE, 16):
             st = RasterSettings(image_height=views[0].height,
                                 image_width=views[0].width, sh_degree=3,
@@ -5933,11 +5969,28 @@ def main():
                 forward_ops(needed["pair_pixels"], needed["live_pair_pixels"],
                             3 + dcfg.lang_dim + 1))    # rgb, language, depth
             timing[ts] = (k_ms, p_ms, s_bound)
+            work[ts] = dict(emitted=emitted, valid=valid,
+                            pairs=needed["pair_pixels"],
+                            live=needed["live_pair_pixels"], pw=pw,
+                            pixels=st.image_height * st.image_width)
             print(f"[5] ts={ts}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
                   f"{needed['pair_pixels']} pair-pixels to evaluate of which "
                   f"{needed['live_pair_pixels']} live, bound "
                   f"{s_bound[0]:.4f} ms by {s_bound[1]} ({s_bound[2]}): "
                   f"kernel / bound {k_ms / s_bound[0]:.2f}", flush=True)
+
+        # 5r. the frame's roofline: phase 5's pairs at 32-px tiles against
+        # phase 4's stage times and phase 3's frame time
+        w, n, widths = work[RENDER_TILE_SIZE], gs.num_active, deform_widths(
+            dcfg)
+        print_roofline("5r", [
+            deform_flops(n, grid_cached=True, **widths),
+            preprocess_model(n, widths["sh_coeffs"]),
+            emit_sort_model(w["emitted"]),
+            gather_model(w["valid"], n, w["pw"]),
+            composite_model(w["pairs"], w["live"], 3 + dcfg.lang_dim + 1,
+                            w["valid"], w["pw"], w["pixels"])],
+            tot, 1e3 / fps, smi)
     shutil.rmtree(out_root, ignore_errors=True)
     del gs, net, views, rows, starts, img, ref
     torch.cuda.empty_cache()
@@ -5983,7 +6036,7 @@ def main():
                                  "gradient bound")
 
     # 8-11. the training path
-    entries, list_ms = train_phases(dev)
+    entries, list_ms = train_phases(dev, smi=smi)
 
     k_ms, p_ms, s_bound = timing[RENDER_TILE_SIZE]
     entries.insert(0, dict(

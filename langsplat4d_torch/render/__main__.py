@@ -33,8 +33,9 @@ from langsplat4d_torch.render.driver import render_set
 from langsplat4d_torch.utils.logging import get_logger
 
 
-def main(argv=None):
-    """Returns {split: FPS} of the splits rendered."""
+def parse_args(argv=None):
+    """The command line -> (the CLI's own flags, the rest, which the
+    config parser reads and where an unknown flag is ignored)."""
     parser = argparse.ArgumentParser(add_help=False)
     parser.add_argument("--iteration", default=-1, type=int)
     parser.add_argument("--skip_train", action="store_true")
@@ -51,7 +52,12 @@ def main(argv=None):
     parser.add_argument("--dist_backend", type=str, default=None,
                         help="torch.distributed backend under torchrun: "
                              "nccl by default, gloo with --device cpu")
-    args, rest = parser.parse_known_args(argv)
+    return parser.parse_known_args(argv)
+
+
+def main(argv=None):
+    """Returns {split: FPS} of the splits rendered."""
+    args, rest = parse_args(argv)
     made = init_from_env(dist_backend(args))
     try:
         return _render(args, rest)

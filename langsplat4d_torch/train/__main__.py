@@ -35,8 +35,9 @@ from langsplat4d_torch.utils.logging import (add_file_sink, get_logger,
 from langsplat4d_torch.utils.profiling import enable_nan_debug
 
 
-def main(argv=None):
-    """Returns the trained TrainState."""
+def parse_args(argv=None):
+    """The command line -> (the CLI's own flags, the training Config); an
+    unknown flag is an error."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", type=str, default=None,
                      help="torch device; the current CUDA device by default "
@@ -45,8 +46,13 @@ def main(argv=None):
                      help="torch.distributed backend under torchrun: nccl "
                           "by default, gloo with --device cpu")
     args, rest = pre.parse_known_args(argv)
-    cfg = parse_cli(rest, description="Training script parameters",
-                    strict=True)
+    return args, parse_cli(rest, description="Training script parameters",
+                           strict=True)
+
+
+def main(argv=None):
+    """Returns the trained TrainState."""
+    args, cfg = parse_args(argv)
     made = init_from_env(dist_backend(args))
     try:
         return _train(args, cfg)

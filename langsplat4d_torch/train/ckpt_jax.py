@@ -7,8 +7,10 @@ parameters and both Adam moments as pytrees of the Gaussian leaves and the
 `num_active`, the five densification buffers, `aabb` and the static
 `active_sh_degree`. `load_jax_checkpoint` unpickles it with an unpickler
 that builds numpy arrays, dtypes and scalars and refuses every other
-class, checks every leaf against the DeformConfig, and maps the payload
-through `interop.train_state_from_jax`. `checkpoint_format` tells that
+class, checks every leaf against the DeformConfig and the fields it
+carries from the training config (the SH degree, the language width, the
+number of discrete centres), and maps the payload through
+`interop.train_state_from_jax`. `checkpoint_format` tells that
 layout from the port's own `torch.save` file; the JAX package's orbax
 directories are refused (the port reads no orbax).
 """
@@ -163,17 +165,58 @@ def _check_leaves(payload: dict, dcfg: DeformConfig, path: str) -> None:
                          f"it does not build?)")
 
 
+def _check_config(payload: dict, dcfg: DeformConfig, path: str) -> None:
+    """The payload against the config the caller trains with, as `dcfg`
+    carries it (DeformConfig.from_config): `aabb` float32 [2, 3];
+    0 <= active_sh_degree <= max_sh_degree; f_rest of (max_sh_degree + 1)^2
+    - 1 coefficients of 3 colours; language_feature as wide as the saved
+    stage's language width, lang_dim, or centers_num * lang_dim on
+    fine-lang-discrete. Nothing is coerced."""
+    aabb = payload["aabb"]
+    if not (isinstance(aabb, np.ndarray) and aabb.dtype == np.float32
+            and aabb.shape == (2, 3)):
+        raise ValueError(
+            f"{path}: aabb is {getattr(aabb, 'dtype', type(aabb).__name__)} "
+            f"{getattr(aabb, 'shape', '')}, not float32 (2, 3)")
+    sh = dcfg.max_sh_degree
+    active = payload["active_sh_degree"]
+    if not (np.ndim(active) == 0 and np.issubdtype(np.asarray(active).dtype,
+                                                   np.integer)
+            and 0 <= int(active) <= sh):
+        raise ValueError(f"{path}: active_sh_degree {active!r} is not an "
+                         f"integer in 0..{sh}, the config's sh_degree")
+    params = payload["params"]
+    coeffs = (sh + 1) ** 2 - 1
+    f_rest = params["f_rest"].shape[1:]
+    if f_rest != (coeffs, 3):
+        raise ValueError(f"{path}: f_rest holds {f_rest} per Gaussian; "
+                         f"sh_degree {sh} gives ({coeffs}, 3)")
+    stage = payload["stage"]
+    width = dcfg.lang_dim * (dcfg.centers_num
+                             if stage == "fine-lang-discrete" else 1)
+    lang = params["language_feature"].shape[1:]
+    if lang != (width,):
+        raise ValueError(
+            f"{path}: language_feature holds {lang} per Gaussian; stage "
+            f"{stage!r} at lang_dim {dcfg.lang_dim}"
+            + (f" x centers_num {dcfg.centers_num}"
+               if stage == "fine-lang-discrete" else "")
+            + f" gives ({width},)")
+
+
 def load_jax_checkpoint(path: str, dcfg: DeformConfig, device=None):
     """The JAX package's `save_checkpoint` file -> (TrainState on `device`,
     the payload). The pickle holds no DeformConfig: `dcfg` comes from the
-    config, and every deform leaf is checked against it. The Adam moments
-    and step, `num_active`, the densification buffers, `aabb` and
-    `active_sh_degree` are restored as saved. Raises, naming the file, on a
-    class other than numpy's, a truncated file, or a leaf that does not
-    fit. `device=None` is the current CUDA device (an error where there is
-    none)."""
+    config the caller trains with, and every deform leaf, `aabb`,
+    `active_sh_degree` and the widths of f_rest and language_feature are
+    checked against it. The Adam moments and step, `num_active`, the
+    densification buffers, `aabb` and `active_sh_degree` are restored as
+    saved. Raises, naming the file, on a class other than numpy's, a
+    truncated file, or a leaf that does not fit. `device=None` is the
+    current CUDA device (an error where there is none)."""
     payload = read_jax_payload(path)
     _check_leaves(payload, dcfg, path)
+    _check_config(payload, dcfg, path)
     jstate = SimpleNamespace(
         params=payload["params"],
         opt=SimpleNamespace(m=payload["opt_m"], v=payload["opt_v"],

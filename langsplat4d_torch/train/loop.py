@@ -298,7 +298,9 @@ def load_checkpoint(path: str, device=None,
     package wrote it: the port's `save_checkpoint` file (a zip, read as
     torch.save wrote it, its DeformConfig from the file) or the JAX
     package's pickle (train/ckpt_jax.py; it holds no DeformConfig, so
-    `dcfg` is required there). The JAX package's orbax directories, and
+    `dcfg` is required there: the config's, from DeformConfig.from_config,
+    whose SH degree, language width and centres the file's leaves must
+    fit). The JAX package's orbax directories, and
     anything else, raise naming the path. `device=None` is the current CUDA
     device (an error where there is none)."""
     device = resolve_device(device)

@@ -18,7 +18,10 @@ nerfies scene that tests/scene_fixture.py writes at 32 px, on the CPU:
   file that the JAX package's loader reads as the state it came from;
 - a pickle holding a jax Array, a truncated file, a deform leaf of the
   wrong shape, an orbax directory and a file of neither layout raise and
-  name the file or the class.
+  name the file or the class;
+- a file that does not fit the config (aabb [3, 2], active_sh_degree 4
+  under sh_degree 3, f_rest or language_feature of another width) raises
+  and names the file and the leaf.
 """
 import dataclasses
 import json
@@ -339,3 +342,41 @@ def test_refusals_name_the_file_or_class(setup, tmp_path):
         f.write(b"junk data")
     with pytest.raises(ValueError, match=r"junk\.pth is neither"):
         tloop.load_checkpoint(junk, device="cpu", dcfg=td)
+
+
+def _aabb_transposed(payload, cap):
+    payload["aabb"] = np.ascontiguousarray(payload["aabb"].T)
+
+
+def _sh_degree_4(payload, cap):
+    payload["active_sh_degree"] = 4
+
+
+def _f_rest_degree_2(payload, cap):
+    for tree in ("params", "opt_m", "opt_v"):
+        payload[tree]["f_rest"] = np.zeros((cap, 8, 3), np.float32)
+
+
+def _language_width_5(payload, cap):
+    for tree in ("params", "opt_m", "opt_v"):
+        payload[tree]["language_feature"] = np.zeros((cap, 5), np.float32)
+
+
+@pytest.mark.parametrize("mutate, match", [
+    (_aabb_transposed, r"aabb is float32 \(3, 2\), not float32 \(2, 3\)"),
+    (_sh_degree_4, r"active_sh_degree 4 is not an integer in 0\.\.3"),
+    (_f_rest_degree_2, r"f_rest holds \(8, 3\) per Gaussian; sh_degree 3 "
+                       r"gives \(15, 3\)"),
+    (_language_width_5, r"language_feature holds \(5,\) per Gaussian; stage "
+                        r"'fine-lang' at lang_dim 3 gives \(3,\)"),
+], ids=["aabb", "active_sh_degree", "f_rest", "language_feature"])
+def test_config_mismatch_names_the_leaf(setup, tmp_path, mutate, match):
+    """A JAX file whose leaves do not fit the config the caller trains with
+    raises, naming the file and the leaf; nothing is coerced."""
+    payload = ckpt_jax.read_jax_payload(setup["ckpt"])
+    mutate(payload, payload["params"]["xyz"].shape[0])
+    bad = str(tmp_path / "misfit.pth")
+    with open(bad, "wb") as f:
+        pickle.dump(payload, f)
+    with pytest.raises(ValueError, match=r"misfit\.pth: " + match):
+        tloop.load_checkpoint(bad, device="cpu", dcfg=setup["td"])

@@ -51,6 +51,7 @@ SLICE = (
     "langsplat4d_torch.utils.timer",
     "langsplat4d_torch.utils.logging",
     "langsplat4d_torch.utils.profiling",
+    "langsplat4d_torch.utils.roofline",
     "langsplat4d_torch.utils.network_gui",
     "langsplat4d_torch.utils.scene_vis",
     "langsplat4d_torch.train.losses",
