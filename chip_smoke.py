@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare NAME=TREE [--compare ...] [--rounds 3]
-    python3 chip_smoke.py --only 25,26,27,28,29,30
+    python3 chip_smoke.py --only 25,26,27,28,29,30,31
 
 Run from the root of a checkout, on a machine with one CUDA GPU and nvcc.
 With --compare it checks nothing and only times the six kernels of this
@@ -163,7 +163,9 @@ Phases, each failing the run on error:
      adaptive rows, a JPEG, a lanczos resample from 2704x2028);
  26. Neu3D at full width through the CLIs: a dynerf scene of 6 cameras x
      20 frames at the reader's 1352x1014 (adaptive-filter PNGs rendered
-     from phase 3's 200k Gaussians with Neu3D's deformation, 100k initial
+     from phase 3's 200k Gaussians with Neu3D's deformation, their rows
+     filtered on the card and the first file's bytes held to
+     data/png.py's, 100k initial
      points, 3-d language ground truth under the names the loader asks
      for), `python -m langsplat4d_torch.train` with configs/neu3d/default.py
      at full width (batch 4) at NEU3D_STAGE_ITERS with densification
@@ -195,10 +197,15 @@ Phases, each failing the run on error:
      one-process step (rtol 2e-3 / atol 2e-4 of each leaf's largest
      entry), kernels 1 and 2 of the first step against their plain
      versions, then densify
-     and prune under the mesh against one process; last, the train CLI
-     under `torch.distributed.run` on 2 ranks with gaussian_shards 2 on
-     phase 19's scene (MESH_CLI_ITERS), and the render CLI on 2 ranks,
-     every frame bit-equal to the one-process render CLI's;
+     and prune under the mesh against one process; and the train CLI on 2
+     ranks with gaussian_shards 2 on phase 19's scene (MESH_CLI_ITERS),
+     and the render CLI on 2 ranks, every frame bit-equal to the
+     one-process render CLI's: their `main` in the 2-rank bands' ranks
+     after the bands, with the bands' group ended and the environment that
+     `torch.distributed.run` sets (RANK, WORLD_SIZE, LOCAL_RANK,
+     MASTER_ADDR, MASTER_PORT), so that each CLI makes and ends its own
+     group from it (one spawn a world size: each costs ~10-25 s before any
+     work);
  29. (run after 27) the offline preprocessing, langsplat4d_torch/
      preprocess/, on 8 frames at HyperNeRF's 960x536 (rgb/2x) with 4-level
      mask stacks of 100/75/50/30 segments and id maps, written by the
@@ -220,18 +227,34 @@ Phases, each failing the run on error:
      states the two loads give, the losses at every iteration and the final
      states bit-equal, kernels 1 and 2 launched in each run; the render CLI
      over the video split on the result, frame 0 against the plain
-     version; it/s and the load's wall ms of each layout.
+     version; it/s and the load's wall ms of each layout;
+ 31. (run after 29) scripts/quality_e2e_torch.py's flow in this process
+     at QUALITY_SCALE 0.1 (120/30/150/120 iterations): the structured
+     moving-ball scene (16 views of 64x64, 16-d features) written by the
+     port, the AE trained and exported, the four-stage curriculum through
+     the train CLI, rgb and lang renders through the render CLI, the eval
+     CLI on COCO polygons of the ball from the port's border following,
+     PSNR and the language margin through the port's AE decode; held to
+     tests/test_quality_gate.py's floors (PSNR 19.5 dB, margin 0.03, mIoU
+     0.0) by the script's own gate; frame 0 of the lang render against the
+     plain version on its rows; each stage's it/s and event, each step's
+     wall seconds, and the kernels' launches (kernels 1-3 and the plane
+     gradient must launch).
+The plain versions' long walks (a thousand steps or more: the full frames'
+streams and cells) replay one CUDA graph of their step
+(ops/composite.py `_repeat`), the same kernels on the same tensors.
 Prints one JSON line describing the kernels (each with its time beside the
 least time the card could take for the same work, and its launches in
 phase 20's loop as `loop_launches`, in phase 23's render as
 `eval_launches`, in phase 24's CLIs as `cli_launches`, in phase 26's as
 `neu3d_launches`, in phase 28's bands as `band_launches` and sharded
-steps as `mesh_launches`, summed over the ranks, and in phase 30's resume
-from the JAX layout and its render as `resume_launches`), the card's name
-and power limit, and as the last line {"ok": true, "device": {...}}.
-Imports nothing of JAX or of the JAX package. `--only 25,26,27,28,29,30`
-runs the build and those phases alone (26, 28 and 30 with 19 and 22, 30
-with phase 24's phase A) and prints no kernels line.
+steps as `mesh_launches`, summed over the ranks, in phase 30's resume
+from the JAX layout and its render as `resume_launches`, and in phase
+31's flow as `quality_launches`), the card's name and power limit, and as
+the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
+the JAX package. `--only 25,26,27,28,29,30,31` runs the build and those
+phases alone (26, 28 and 30 with 19 and 22, 30 with phase 24's phase A)
+and prints no kernels line.
 """
 import argparse
 import contextlib
@@ -1511,8 +1534,10 @@ def cell_phases(dev, frames=10, **workload_kw):
         rows, cell_starts, kw = frame_cell_rows(cells_st, dcfg, gs, net, aabb,
                                                 views[0], grid_spatial)
         out = C.composite_cells(rows, cell_starts, bg, **kw)
+        whole = {}
         t0 = time.perf_counter()
-        ref = C.composite_cells_plain(rows, cell_starts, bg, **kw)
+        ref = C.composite_cells_plain(rows, cell_starts, bg, stats=whole,
+                                      **kw)
         if on_card:
             torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
@@ -1521,7 +1546,7 @@ def cell_phases(dev, frames=10, **workload_kw):
               f"{err:.3g}", flush=True)
         if not err <= TOL:
             raise AssertionError(f"cell kernel vs plain {err} > {TOL}")
-        needed = cell_scheme_report(rows, cell_starts, bg, kw, ref)
+        needed = cell_scheme_report(rows, cell_starts, bg, kw, ref, whole)
         if not on_card:
             return None
         k_ms = time_ms(lambda: C.composite_cells(rows, cell_starts, bg,
@@ -1563,18 +1588,17 @@ def frame_cell_rows(settings, dcfg, gs, net, aabb, view, grid_spatial):
                                    tile_size=16, hard_cutoffs=True)
 
 
-def cell_scheme_report(rows, cell_starts, bg, kw, ref, phase=18):
+def cell_scheme_report(rows, cell_starts, bg, kw, ref, whole, phase=18):
     """The cell kernel's scheme on one frame's rows, counted by its plain
     twin (`composite_cells_plain` with `cull`): a tile evaluates only the
     candidates whose rect covers it and that the tile test keeps. Prints
     the candidates, the rows covered and kept per tile and per 256-candidate
     pass of the walk (every pass, as if no pixel stopped), and the pairs
-    the plain version and the scheme evaluate. Fails if the scheme's output
-    is not `ref` (the plain version's) bit for bit or its live pairs
+    the plain version (`ref`, counted in `whole`) and the scheme evaluate.
+    Fails if the scheme's output is not `ref` bit for bit or its live pairs
     differ. -> the scheme's stats."""
     from langsplat4d_torch.ops import composite as C
-    whole, needed = {}, {}
-    C.composite_cells_plain(rows, cell_starts, bg, stats=whole, **kw)
+    needed = {}
     culled = C.composite_cells_plain(rows, cell_starts, bg, cull=True,
                                      stats=needed, **kw)
     lens = (cell_starts[1:] - cell_starts[:-1]).long()
@@ -2470,7 +2494,7 @@ DISCRETE_ITERS = 200
 # phase A's stage budgets: a third of phase 20's (coarse-base, coarse-lang,
 # fine-base; 300/100/300 until phase 26 came, 150/50/150 until phase 28
 # came), which keeps the four runs of the snapshots' turns inside the
-# script's time
+# script's time; a stage draws its debug grid at iteration 100
 CLI_STAGE_ITERS = (100, 40, 100, 40)
 KMEANS_PLAIN_ROWS = 256
 def free_port():
@@ -4063,6 +4087,44 @@ def write_files(items):
         list(ex.map(one, items))
 
 
+def adaptive_png_rows(img):
+    """An [H, W, C] uint8 image on the card -> its PNG scanlines [H, 1 + W
+    * C] (uint8, on the host) under libpng's adaptive filter choice, as
+    data/png.py's `adaptive_filters` and `png_bytes` take them on the
+    host, for `png_from_rows`: the five filters of every row on the card,
+    and of each row the first whose bytes, read as signed, have the least
+    sum of absolute values. `held_png_rows` holds them to data/png.py's:
+    a change to one rule is made to the other."""
+    h, w, c = img.shape
+    line = img.reshape(h, w * c).to(torch.int32)
+    prev = torch.nn.functional.pad(line, (0, 0, 1, 0))[:-1]
+    left = torch.nn.functional.pad(line, (c, 0))[:, :-c]
+    upleft = torch.nn.functional.pad(prev, (c, 0))[:, :-c]
+    p = left + prev - upleft
+    pa, pb, pc = (p - left).abs(), (p - prev).abs(), (p - upleft).abs()
+    paeth = torch.where((pa <= pb) & (pa <= pc), left,
+                        torch.where(pb <= pc, prev, upleft))
+    cand = torch.stack([line, line - left, line - prev,
+                        line - ((left + prev) >> 1), line - paeth]) % 256
+    pick = torch.minimum(cand, 256 - cand).sum(2).argmin(0)
+    rows = cand.gather(0, pick[None, :, None].expand(1, h, w * c))[0]
+    return torch.cat([pick[:, None], rows], 1).to(torch.uint8).cpu().numpy()
+
+
+def held_png_rows(img, rows, ys):
+    """`adaptive_png_rows`'s rows `ys` of the host image `img` against
+    data/png.py's filter choice and bytes, each row taken with the row
+    above it (its Up, Average and Paeth filters read that row)."""
+    from langsplat4d_torch.data.png import (adaptive_filters, inflate_png,
+                                            png_bytes)
+    for y in ys:
+        pair = img[max(y - 1, 0):y + 1]
+        want = inflate_png(png_bytes(pair, adaptive_filters(pair)))[0][-1]
+        if not np.array_equal(rows[y], want):
+            raise AssertionError(f"row {y} filtered on the device differs "
+                                 "from data/png.py's")
+
+
 NEU3D_HW = (1014, 1352)        # Neu3DDataset's fixed img_wh at downsample 1
 NEU3D_FOCAL_PX = 1200.0        # the focal at 1352 px
 
@@ -4096,7 +4158,8 @@ def write_dynerf_scene(root, dev, workload, cams=6, frames=30,
     for the annotations."""
     from langsplat4d_torch.core.transforms import focal2fov
     from langsplat4d_torch.data.cameras import HostCamera
-    from langsplat4d_torch.data.png import adaptive_filters, png_bytes
+    from langsplat4d_torch.data.png import (adaptive_filters, png_bytes,
+                                            png_from_rows)
     from langsplat4d_torch.data.readers import Neu3DDataset, store_ply
     rng = np.random.default_rng(seed)
     gs = workload[0]
@@ -4121,8 +4184,15 @@ def write_dynerf_scene(root, dev, workload, cams=6, frames=30,
             img, lang = render_frame(dev, workload, cam, f / 300, bg)
             path = os.path.join(root, f"cam{ci:02d}", "images", f"{f:04d}.png")
             segs[path] = segments_of(lang, feats)
-            items.append((path, lambda img=img: png_bytes(
-                img, adaptive_filters(img))))
+            rows = adaptive_png_rows(torch.from_numpy(img).to(dev))
+            if not items and png_from_rows(rows, w, 3) != png_bytes(
+                    img, adaptive_filters(img)):
+                raise AssertionError("the rows filtered on the device give "
+                                     "other bytes than data/png.py's")
+            # every file: eight of its rows, its first and last among them
+            held_png_rows(img, rows, {0, h - 1, *(
+                (np.arange(6) * h // 6 + 31 * ci + 7 * f) % h)})
+            items.append((path, lambda rows=rows: png_from_rows(rows, w, 3)))
     write_files(items)
     xyz, rgb = initial_cloud(gs, n_init, rng)
     store_ply(os.path.join(root, "points3D_downsample2.ply"), xyz, rgb)
@@ -4359,10 +4429,13 @@ def write_panoptic_scene(root, dev, workload, n_cams=4, frames=2,
 # phase 28 came: the script needed its time); densify, prune and the
 # opacity reset still fire once, at the last iteration, in both base stages
 NEU3D_CAMS, NEU3D_FRAMES = 6, 20
-NEU3D_STAGE_ITERS = (150, 60, 150, 60)
-NEU3D_CUTS = dict(LOOP_CUTS, densify_from_iter=75, densification_interval=75,
-                  pruning_from_iter=75, pruning_interval=75,
-                  opacity_reset_interval=150)
+# 150/60/150/60 before phase 31 came (200/60/200/60 before that); densify,
+# prune and the opacity reset fire once in both base stages, at their last
+# iteration
+NEU3D_STAGE_ITERS = (100, 40, 100, 40)
+NEU3D_CUTS = dict(LOOP_CUTS, densify_from_iter=50, densification_interval=50,
+                  pruning_from_iter=50, pruning_interval=50,
+                  opacity_reset_interval=100)
 CACHE_TURNS_MB = (4096, 256, 256, 4096)   # the default, and ~60 of 180 frames
 # 70 / 25 until phase 28 came: the script needed its time; a turn must
 # reach the second epoch (batch 4 of 100 training frames) for the cache to
@@ -4745,12 +4818,13 @@ BAND_TIMED = 3              # frames timed stage by stage after render_set
 MESH_SHAPE = (2, 2)         # data x gauss
 MESH_STEPS = 5
 # the train CLI on two ranks: a further cut of phase 24's depth (at
-# 60/20/60/20 it took a third of the phase); densify and prune fire at 5
-# and 10 and the opacity reset at 8 in both base stages
-MESH_CLI_ITERS = (10, 5, 10, 5)
-MESH_CLI_CUTS = dict(densify_from_iter=3, densification_interval=5,
-                     pruning_from_iter=3, pruning_interval=5,
-                     min_points_for_prune=50_000, opacity_reset_interval=8)
+# 60/20/60/20 it took a third of the phase, at 10/5/10/5 62 s of 214);
+# densify and prune fire at 3 and 6 and the opacity reset at 4 in both base
+# stages
+MESH_CLI_ITERS = (6, 3, 6, 3)
+MESH_CLI_CUTS = dict(densify_from_iter=2, densification_interval=3,
+                     pruning_from_iter=2, pruning_interval=3,
+                     min_points_for_prune=50_000, opacity_reset_interval=4)
 RANK_TIMEOUT = 600          # seconds a spawned group or a collective waits
 
 
@@ -4874,7 +4948,8 @@ def _rank_entry(rank, fn, world, store, backend, args):
     try:
         fn(rank, world, *args)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():           # band_rank's CLIs end theirs
+            dist.destroy_process_group()
 
 
 def band_config(model_path, shards):
@@ -4955,11 +5030,16 @@ def band_stage_ms(mesh, settings, dcfg, gs, net, aabb, views, exchange):
     return tot, stats.get("bytes", 0)
 
 
-def band_rank(rank, world, root, frames, workload_kw, t_spawn):
+def band_rank(rank, world, root, frames, workload_kw, t_spawn, cli=None):
     """One rank of the band render: the bench workload, render_set with
     gaussian_shards = world in both exchanges (rank 0 writes the frames),
     kernel 3's first band held against its plain version, then the stage
-    times; saves its numbers to root/band{world}.{rank}."""
+    times; saves its numbers to root/band{world}.{rank}. With `cli`
+    (`mesh_cli_argv`'s train and render argv and ExpsDir), then the train
+    and render CLIs on this world as under torch.distributed.run: the
+    bands' group ended, the launcher's environment set, and each CLI's
+    group made from it and ended by the CLI (`init_from_env`), on a port
+    of its own; their seconds saved to root/cli.{rank}."""
     from langsplat4d_torch.checkpoint import TrainedModel
     from langsplat4d_torch.ops import composite as C
     from langsplat4d_torch.parallel import render as PR
@@ -5006,6 +5086,51 @@ def band_rank(rank, world, root, frames, workload_kw, t_spawn):
             band_rows=kw["tiles_y"], stage_ms=stage_ms, bytes=sent,
             max_mem=_peak_memory(dev))
     torch.save(res, os.path.join(root, f"band{world}.{rank}"))
+    if cli is None:
+        return
+    from langsplat4d_torch.render import __main__ as render_cli
+    from langsplat4d_torch.train import __main__ as train_cli
+    del gs, net, model, views
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    train_argv, render_argv, exps = cli
+    os.environ.pop("LS4D_BAND_EXCHANGE")        # the CLIs' default exchange
+    os.environ["ExpsDir"] = exps
+    # from here the ranks are as torch.distributed.run starts them: no
+    # group, and the launcher's environment (one card: LOCAL_RANK picks it)
+    ports = [None, None]
+    while rank == 0 and (ports[0] is None or ports[0] == ports[1]):
+        ports = [free_port(), free_port()]
+    dist.broadcast_object_list(ports, src=0)
+    dist.destroy_process_group()
+    os.environ.update(MASTER_ADDR="127.0.0.1", RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    secs = {}
+    for (what, main, argv), port in zip(
+            (("train", train_cli.main, train_argv),
+             ("render", render_cli.main, render_argv)), ports):
+        os.environ["MASTER_PORT"] = str(port)
+        t0 = time.perf_counter()
+        main(argv)          # make_mesh(1, 2) raises without the CLI's group
+        if dist.is_initialized():
+            raise AssertionError(f"the {what} CLI left its process group")
+        # rank 0 writes the model: the render waits for it, as the second
+        # launch of torch.distributed.run waits for the first to end
+        _wait_for_ranks(root, f"cli_{what}", rank, world)
+        secs[what] = time.perf_counter() - t0
+    torch.save(secs, os.path.join(root, f"cli.{rank}"))
+
+
+def _wait_for_ranks(root, tag, rank, world):
+    """A barrier of files in `root`, for ranks that share no group."""
+    open(os.path.join(root, f"{tag}.done.{rank}"), "w").close()
+    deadline = time.monotonic() + RANK_TIMEOUT
+    while not all(os.path.exists(os.path.join(root, f"{tag}.done.{r}"))
+                  for r in range(world)):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{tag}: a rank did not arrive in "
+                               f"{RANK_TIMEOUT} s")
+        time.sleep(0.2)
 
 
 def two_camera_batch(batch, dev):
@@ -5174,15 +5299,14 @@ def nccl_one_rank(dev, gs, dcfg, net, aabb, views, ref_dir, root):
         dist.destroy_process_group()
 
 
-def mesh_cli_phase(dev, root, timeout=900, iters=MESH_CLI_ITERS,
-                   cuts=MESH_CLI_CUTS, hidden=None):
-    """The CLIs on two ranks: `python -m torch.distributed.run
-    --standalone --nproc_per_node 2 -m langsplat4d_torch.train` with
-    gaussian_shards = 2 on phase 19's scene (phase 22's export) at
-    MESH_CLI_ITERS, then `.render --mode lang` of the test split on two
-    ranks, and the one-process render CLI on a copy of the same model:
-    every frame bit-equal. Prints the seconds of each."""
-    from langsplat4d_torch.render import __main__ as render_cli
+def mesh_cli_argv(dev, root, iters=MESH_CLI_ITERS, cuts=MESH_CLI_CUTS,
+                  hidden=None):
+    """The CLIs on two ranks, as `python -m torch.distributed.run
+    --standalone --nproc_per_node 2 -m langsplat4d_torch.train|render`
+    would run them: the train CLI with gaussian_shards = 2 on phase 19's
+    scene (phase 22's export) at MESH_CLI_ITERS, then the render CLI in
+    lang mode over the test split. -> (train argv, render argv, ExpsDir,
+    the model's directory, the one-rank config file)."""
     model = os.path.join(root, "mesh_cli_model")
     cfg_files = {}
     for shards in (1, 2):
@@ -5192,53 +5316,43 @@ def mesh_cli_phase(dev, root, timeout=900, iters=MESH_CLI_ITERS,
                 REPO, "configs", "hypernerf", "default.py"))
                 + f"\nwatchdog_execv = False\ngaussian_shards = {shards}\n"
                 + (f"ModelHiddenParams = {hidden!r}\n" if hidden else ""))
-    cfg_file = cfg_files[2]
     flags = dict(zip(("coarse_base_iterations", "coarse_lang_iterations",
                       "fine_base_iterations", "fine_lang_iterations"),
                      iters), **cuts)
-    argv = (["--source_path", root, "--model_path", model, "--expname",
-             "smoke_mesh", "--configs", cfg_file, "--language_features_name",
-             f"language_features_dim{AE_ENC[-1]}", "--feature_level", "1",
-             "--save_iterations", str(iters[3]), "--port", "-1",
-             "--no_dlang", "0", "--dist_backend", "gloo"]
-            + [a for k, v in flags.items() for a in (f"--{k}", str(v))])
-    env = dict(os.environ, ExpsDir=os.path.join(root, "exps_mesh"))
     device = [] if dev.type == "cuda" else ["--device", "cpu"]
-    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2", "-m"]
-    argv += device
-    print("[28] train CLI on 2 ranks (gloo, one card): depth "
+    train = (["--source_path", root, "--model_path", model, "--expname",
+              "smoke_mesh", "--configs", cfg_files[2],
+              "--language_features_name",
+              f"language_features_dim{AE_ENC[-1]}", "--feature_level", "1",
+              "--save_iterations", str(iters[3]), "--port", "-1",
+              "--no_dlang", "0", "--dist_backend", "gloo"]
+             + [a for k, v in flags.items() for a in (f"--{k}", str(v))]
+             + device)
+    render = (["--model_path", model, "--source_path", root, "--configs",
+               cfg_files[2], "--mode", "lang", "--load_stage", "fine-lang",
+               "--skip_train", "--skip_video", "--novideo", "1",
+               "--dist_backend", "gloo"] + device)
+    print("[28] train CLI on 2 ranks (gloo, one card), in the ranks of the "
+          "2-rank bands, each CLI's group made from the launcher's "
+          "environment: depth "
           + " ".join(f"{k} {v}" for k, v in flags.items()), flush=True)
-    secs = {}
-    for what, cmd in (
-            ("train", run + ["langsplat4d_torch.train"] + argv),
-            ("render", run + ["langsplat4d_torch.render", "--model_path",
-                              model, "--source_path", root, "--configs",
-                              cfg_file, "--mode", "lang", "--load_stage",
-                              "fine-lang", "--skip_train", "--skip_video",
-                              "--novideo", "1", "--dist_backend", "gloo"]
-             + device)):
-        t0 = time.perf_counter()
-        p = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True,
-                             start_new_session=True)
-        try:
-            text, _ = p.communicate(timeout=timeout)
-        finally:
-            if p.poll() is None:             # its ranks go with it
-                os.killpg(p.pid, 9)
-                p.wait()
-        secs[what] = time.perf_counter() - t0
-        tail = "\n".join(text.strip().splitlines()[-8:])
-        print(f"[28] {what} CLI on 2 ranks: exit {p.returncode} in "
-              f"{secs[what]:.1f} s; its last lines:\n{tail}", flush=True)
-        if p.returncode != 0:
-            raise AssertionError(f"the {what} CLI on 2 ranks failed")
+    return train, render, os.path.join(root, "exps_mesh"), model, \
+        cfg_files[1]
+
+
+def mesh_cli_check(dev, root, model, cfg_one, iters=MESH_CLI_ITERS,
+                   secs=None):
+    """The one-process render CLI on a copy of the model that the CLIs on
+    two ranks trained: every frame bit-equal to the 2-rank render CLI's.
+    Prints the seconds of each."""
+    from langsplat4d_torch.render import __main__ as render_cli
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    secs = dict(secs or {})
     one = model + "_one"
     shutil.copytree(model, one, ignore=shutil.ignore_patterns("test_lang"))
     t0 = time.perf_counter()
     render_cli.main(["--model_path", one, "--source_path", root,
-                     "--configs", cfg_files[1],
+                     "--configs", cfg_one,
                      "--mode", "lang", "--load_stage", "fine-lang",
                      "--skip_train", "--skip_video", "--novideo", "1"]
                     + device)
@@ -5274,7 +5388,7 @@ def mesh_phase(dev, scene_root, smi, band_kw=None, train_kw=None,
     error, kernel 1's error in the sharded step), launches summed over the
     ranks. `band_kw`, `train_kw` and `cli_kw` size the workloads down for a
     rehearsal on the CPU (bench_workload's, train_workload's and
-    mesh_cli_phase's keywords); the card runs the full ones."""
+    mesh_cli_argv's keywords); the card runs the full ones."""
     band_kw, train_kw = band_kw or {}, train_kw or {}
     on_card = dev.type == "cuda"      # the plain versions count nothing
     from langsplat4d_torch.checkpoint import TrainedModel
@@ -5312,18 +5426,30 @@ def mesh_phase(dev, scene_root, smi, band_kw=None, train_kw=None,
                            "renders_npy")
     print(f"[28] one process: render_set of {BAND_FRAMES} lang frames of the "
           f"bench workload, FPS {fps1:.3f}", flush=True)
+    # one spawn a world size: the 2-rank world runs the CLIs after its bands
+    cli_train, cli_render, exps, cli_model, cfg_one = mesh_cli_argv(
+        dev, scene_root, **(cli_kw or {}))
+    cli_secs = {}
     band_launches = 0
     for world in BAND_SHARDS:
         t0 = time.perf_counter()
+        cli = (cli_train, cli_render, exps) if world == 2 else None
         spawn_ranks(band_rank, world, root, root, BAND_FRAMES, band_kw,
-                    time.time())
+                    time.time(), cli)
         res = [torch.load(os.path.join(root, f"band{world}.{r}"),
                           weights_only=False) for r in range(world)]
         print(f"[28] gaussian_shards {world}: {world} spawned ranks in "
               f"{time.perf_counter() - t0:.1f} s, each ready (started, "
               f"imported, its workload built) after "
-              + ", ".join(f"{r['ready']:.1f}" for r in res) + " s",
-              flush=True)
+              + ", ".join(f"{r['ready']:.1f}" for r in res) + " s"
+              + ("" if cli is None else "; the bands, then the train and "
+                 "the render CLI"), flush=True)
+        if cli is not None:
+            cli_secs = torch.load(os.path.join(root, "cli.0"))
+            print(f"[28] on those 2 ranks: train CLI "
+                  f"{cli_secs['train']:.1f} s, render CLI "
+                  f"{cli_secs['render']:.1f} s (rank 0's wall clock)",
+                  flush=True)
         for ex in ("allgather", "alltoall"):
             out_dir = os.path.join(root, f"band{world}_{ex}", "video_lang",
                                    "ours_0", "renders_npy")
@@ -5404,7 +5530,9 @@ def mesh_phase(dev, scene_root, smi, band_kw=None, train_kw=None,
             or max(r0["worst"].values()) > 0 or nm != n or dx > 0
             or any(abs(a - b) > 1e-5 * abs(b) for a, b in r0["losses"])):
         raise AssertionError("the sharded step differs from one rank's")
-    secs = mesh_cli_phase(dev, scene_root, **(cli_kw or {}))
+    secs = mesh_cli_check(dev, scene_root, cli_model, cfg_one,
+                          (cli_kw or {}).get("iters", MESH_CLI_ITERS),
+                          cli_secs)
     print(f"[28] phase 28 took {time.perf_counter() - t_phase:.1f} s "
           f"(CLIs: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
           + ")", flush=True)
@@ -5756,13 +5884,102 @@ def preprocess_phase(dev, root, frames=PRE_FRAMES, hw=PRE_HW,
     return ms
 
 
+# phase 31: scripts/quality_e2e_torch.py's flow at tests/test_quality_gate.py's
+# reduced scale, held to that gate's floors: at full scale the JAX package's
+# one run clears its own mIoU floor (0.78) by 0.0047, and that gate finds
+# the reduced scale's mIoU a knife-edge (0.0 floor there), so the card
+# holds the port to the floors that healthy runs clear with room
+QUALITY_SCALE = "0.1"               # 120/30/150/120 iterations
+QUALITY_FLOORS = dict(psnr_floor=19.5, miou_floor=0.0, margin_floor=0.03)
+QUALITY_KERNELS = ("composite_tiles", "composite_tiles_backward",
+                   "composite_stream", "composite_stream_chunks",
+                   "composite_stream_chunks_backward")
+
+
+def quality_phase(dev, root):
+    """Phase 31: scripts/quality_e2e_torch.py's `run` in this process at
+    QUALITY_SCALE on the structured moving-ball scene (the port's scene
+    writer, AE train and export, the four-stage curriculum through the
+    train CLI, rgb and lang renders, the eval CLI, PSNR and the language
+    margin), held to QUALITY_FLOORS by the script's own `gate`. Frame 0 of
+    the lang render (its warm-up view) is held against the plain version on
+    its rows. Prints the metrics, each stage's it/s and event, each step's
+    wall seconds and the kernels' launches in the run. -> {kernel:
+    launches}."""
+    from langsplat4d_torch.ops import composite as C
+    from langsplat4d_torch.ops import grid_sample as G
+    from langsplat4d_torch.render import __main__ as render_cli
+    spec = importlib.util.spec_from_file_location(
+        "quality_e2e_torch", os.path.join(REPO, "scripts",
+                                          "quality_e2e_torch.py"))
+    Q = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(Q)
+    shutil.rmtree(root, ignore_errors=True)
+    for n in QUALITY_KERNELS:
+        getattr(C, n).launches = 0
+    G.plane_grad.launches = 0
+    saved_env = {k: os.environ.get(k) for k in ("QUALITY_SCALE",
+                                                "QUALITY_EXTRA_CFG")}
+    os.environ["QUALITY_SCALE"] = QUALITY_SCALE
+    os.environ.pop("QUALITY_EXTRA_CFG", None)
+    render_main, first = render_cli.main, FirstComposite()
+
+    def render_kept(argv):              # the lang render's first composite
+        if argv[argv.index("--mode") + 1] != "lang":
+            return render_main(argv)
+        with first:
+            return render_main(argv)
+    render_cli.main = render_kept
+    t0 = time.perf_counter()
+    try:
+        with LoopProbe(dev) as probe:
+            metrics, measured = Q.run(
+                root, None if dev.type == "cuda" else str(dev),
+                log=lambda line: print(f"[31] {line}", flush=True))
+    finally:
+        render_cli.main = render_main
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    secs = time.perf_counter() - t0
+    launches = {n: getattr(C, n).launches for n in QUALITY_KERNELS}
+    launches["plane_grad"] = G.plane_grad.launches
+    print("[31] events: " + ", ".join(
+        f"{st} {it} {what} -> {n}" for st, it, what, n in probe.events),
+          flush=True)
+    print("[31] wall seconds a step: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in metrics["step_seconds"].items())
+          + f"; the flow {secs:.1f} s", flush=True)
+    first.hold(31, "the lang render CLI's frame 0")
+    print(f"[31] PSNR {measured['psnr']:.4f} dB, mIoU {measured['miou']}, "
+          f"margin {measured['margin']:.4f} at QUALITY_SCALE {QUALITY_SCALE} "
+          f"(floors PSNR {QUALITY_FLOORS['psnr_floor']}, mIoU "
+          f"{QUALITY_FLOORS['miou_floor']}, margin "
+          f"{QUALITY_FLOORS['margin_floor']}: tests/test_quality_gate.py's); "
+          "launches " + ", ".join(f"{k} {v}" for k, v in launches.items()),
+          flush=True)
+    failures = Q.gate(measured, **QUALITY_FLOORS)
+    if failures:
+        raise AssertionError("QUALITY GATE FAILED: " + "; ".join(failures))
+    if dev.type == "cuda" and min(
+            launches[n] for n in ("composite_tiles",
+                                  "composite_tiles_backward",
+                                  "composite_stream", "plane_grad")) == 0:
+        raise AssertionError(f"a kernel of the flow did not launch: "
+                             f"{launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare", action="append", default=[],
                     metavar="NAME=TREE")
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--only", default="", metavar="25,26,27,28,29,30",
-                    help="run the build and only these of phases 25-30 (26, "
+    ap.add_argument("--only", default="", metavar="25,26,27,28,29,30,31",
+                    help="run the build and only these of phases 25-31 (26, "
                          "28 and 30 with 19 and 22, whose scene and "
                          "autoencoder they use, 30 with phase 24's phase "
                          "A), without the kernels line")
@@ -5823,11 +6040,13 @@ def main():
                                 "formats")
     preprocess_root = os.path.join(REPO, "langsplat4d_torch", "_build",
                                    "preprocess")
+    quality_root = os.path.join(REPO, "langsplat4d_torch", "_build",
+                                "quality")
     if args.only:
         only = {int(p) for p in args.only.split(",")}
-        if not only <= {25, 26, 27, 28, 29, 30}:
+        if not only <= {25, 26, 27, 28, 29, 30, 31}:
             raise SystemExit("--only takes phases among 25, 26, 27, 28, 29, "
-                             "30")
+                             "30, 31")
         if 25 in only:
             codec_phase()
         if only & {26, 28, 30}:
@@ -5845,6 +6064,8 @@ def main():
             formats_phase(dev, formats_root)
         if 29 in only:
             preprocess_phase(dev, preprocess_root, smi=smi)
+        if 31 in only:
+            quality_phase(dev, quality_root)
         print(smi)
         return 0
 
@@ -6187,12 +6408,20 @@ def main():
     torch.cuda.empty_cache()
 
     stamp("29")
+    # 31. scripts/quality_e2e_torch.py's flow at the reduced-scale gate
+    quality_launches = quality_phase(dev, quality_root)
+    for e in entries:
+        e["quality_launches"] = quality_launches.get(e["name"], 0)
+    torch.cuda.empty_cache()
+
+    stamp("31")
     # 11, and 15's: the profiles of the two training steps
     for stream, ms_step, phase in ((False, list_ms, 11),
                                    (True, stream_ms, 15)):
         state, cfg, batch, bg = train_workload(dev, stream=stream)
         train_step(cfg, state, batch, bg, 1, 3)                 # warm-up
         profile_steps(cfg, state, batch, bg, ms_step, phase=phase)
+    stamp("11 and 15's profiles")
     print(json.dumps({"kernels": [
         dict({"library_ms": None}, **e, route="cuda",
              source=KERNELS[e["name"]][0], replaces=KERNELS[e["name"]][1])

@@ -81,6 +81,97 @@ def polygon_to_mask(img_shape: Tuple[int, int], points_list) -> np.ndarray:
     return mask
 
 
+# OpenCV's numbering of a pixel's eight neighbours (CV_INIT_3X3_DELTAS,
+# icvCodeDeltas): 0 east, then counter-clockwise on the screen
+_NEIGHBOURS = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
+               (1, 1))
+_RIGHT_EDGE = -126           # (schar)(2 | -128): a border pixel whose east
+                             # neighbour the follower saw as background
+
+
+def _follow_outer_border(img: np.ndarray, x0: int, y0: int) -> List[tuple]:
+    """OpenCV's `icvFetchContour` at CHAIN_APPROX_SIMPLE on an outer border
+    starting at (x0, y0) of the zero-padded int8 image `img`: the border
+    followed with the start's neighbours searched clockwise from the
+    north-west, then each pixel's counter-clockwise from where the walk came
+    in; a pixel becomes _RIGHT_EDGE where that search passed its east
+    neighbour as background, else 2 where it was still 1; a point is kept
+    where the walk turns. -> [(x, y)] in the padded image."""
+    s = s_end = 4
+    while True:
+        s = (s - 1) & 7
+        x1, y1 = x0 + _NEIGHBOURS[s][0], y0 + _NEIGHBOURS[s][1]
+        if img[y1, x1] != 0 or s == s_end:
+            break
+    if s == s_end:                                   # a lone pixel
+        img[y0, x0] = _RIGHT_EDGE
+        return [(x0, y0)]
+    points = []
+    x3, y3, prev_s = x0, y0, s ^ 4
+    while True:
+        s_end = s
+        while s < 15:
+            s += 1
+            x4, y4 = x3 + _NEIGHBOURS[s & 7][0], y3 + _NEIGHBOURS[s & 7][1]
+            if img[y4, x4] != 0:
+                break
+        s &= 7
+        if 1 <= s <= s_end:
+            img[y3, x3] = _RIGHT_EDGE
+        elif img[y3, x3] == 1:
+            img[y3, x3] = 2
+        if s != prev_s:
+            points.append((x3, y3))
+            prev_s = s
+        if (x4, y4) == (x0, y0) and (x3, y3) == (x1, y1):
+            return points
+        x3, y3, s = x4, y4, (s + 4) & 7
+
+
+def external_contours(mask: np.ndarray) -> List[np.ndarray]:
+    """The outer borders of the 8-connected components of a 2-d mask's
+    nonzero pixels, as OpenCV's `findContours(mask, RETR_EXTERNAL,
+    CHAIN_APPROX_SIMPLE)` gives them (Suzuki and Abe's border following in
+    OpenCV's raster scan): each an int32 [N, 2] array of (x, y) points, the
+    turns of the border, from its first pixel in raster order down its left
+    side; a component inside another's hole is left out; the last found
+    first. The image's own edge pixels count (OpenCV pads the image with a
+    frame of zeros)."""
+    h, w = mask.shape
+    img = np.zeros((h + 2, w + 2), np.int8)
+    img[1:-1, 1:-1] = mask != 0
+    found = []
+    for y in range(1, h + 1):
+        row = img[y]
+        lnbd_x, prev, x = 0, 0, 1          # the last border pixel on the row
+        while x <= w:
+            p = int(row[x])
+            if p == prev:
+                x += 1
+                continue
+            if prev == 0 and p == 1:       # an outer border starts here
+                if img[y, lnbd_x] <= 0:    # not inside a traced component
+                    found.append(_follow_outer_border(img, x, y))
+                    prev = int(row[x])
+                    x += 1
+                    continue
+            elif p == 0 and prev >= 1 and prev & -2:
+                lnbd_x = x - 1             # a hole's start, not followed
+            prev = p
+            if prev & -2:
+                lnbd_x = x
+            x += 1
+    return [np.asarray(c, np.int32) - 1 for c in reversed(found)]
+
+
+def bounding_rect(points: np.ndarray) -> Tuple[int, int, int, int]:
+    """OpenCV's `boundingRect` of integer points [N, 2]: (x, y, w, h) with
+    w and h counting pixels."""
+    lo, hi = points.min(0), points.max(0)
+    return int(lo[0]), int(lo[1]), int(hi[0] - lo[0] + 1), \
+        int(hi[1] - lo[1] + 1)
+
+
 def stack_mask(mask_base: np.ndarray, mask_add: np.ndarray) -> np.ndarray:
     mask = mask_base.copy()
     mask[mask_add != 0] = 1

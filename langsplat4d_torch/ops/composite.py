@@ -553,13 +553,35 @@ class _TileGrid:
         return alpha_raw, alpha, skip
 
 
+def _repeat(step, n: int, device: torch.device) -> None:
+    """`step()` n times. A plain walk issues some 70 small operations a
+    step, so on the card the host's launches, not the card, set its pace:
+    on a CUDA device the walk runs its first step as it is and the others
+    as replays of one CUDA graph captured of it (the same kernels on the
+    same tensors: the same result). `step` keeps its state in tensors that
+    it updates in place, and its position in a device counter."""
+    if n <= 0:
+        return
+    step()
+    if device.type != "cuda" or n == 1:
+        for _ in range(n - 1):
+            step()
+        return
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step()
+    for _ in range(n - 1):
+        graph.replay()
+
+
 def _blend_plain(row_at, kmax: int, grid: _TileGrid, c_feat: int,
                  bg: torch.Tensor, hard_cutoffs: bool,
                  stats: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential front-to-back blend of every tile's k-th Gaussian at step
     k, for all tiles and pixels at once. `row_at(k)` gives (r [T, PW], valid
-    [T, 1]). Returns (acc [C, T, px] with bg * T added to rgb, asum [T, px]).
+    [T, 1]) for a step k held in a 0-d int64 tensor. Returns (acc [C, T, px]
+    with bg * T added to rgb, asum [T, px]).
     With a `stats` dict, stats["pair_pixels"] becomes the number of
     (Gaussian, pixel) pairs evaluated: each pixel counts the Gaussians of
     its list up to and including the one it stops at; and
@@ -576,23 +598,28 @@ def _blend_plain(row_at, kmax: int, grid: _TileGrid, c_feat: int,
     done = torch.zeros_like(T, dtype=torch.bool)
     evaluated = torch.zeros((), dtype=torch.int64, device=dev)
     blended = torch.zeros((), dtype=torch.int64, device=dev)
-    for k in range(kmax):
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step():
         r, valid = row_at(k)
         if stats is not None:
-            evaluated += (valid & ~done).sum()
+            evaluated.add_((valid & ~done).sum())
         _, alpha, skip = grid.alpha(r, hard_cutoffs)
         test_T = T * (1.0 - alpha)
         live = valid & ~done & ~skip
         if hard_cutoffs:
             stop = live & (test_T < T_EPS)
-            done = done | stop
+            done.logical_or_(stop)
             live = live & ~stop
         if stats is not None:
-            blended += live.sum()
+            blended.add_(live.sum())
         w = alpha * T
-        acc = torch.where(live, acc + r[:, HDR:].T[:, :, None] * w, acc)
-        asum = torch.where(live, asum + w, asum)
-        T = torch.where(live, test_T, T)
+        acc.copy_(torch.where(live, acc + r[:, HDR:].T[:, :, None] * w, acc))
+        asum.copy_(torch.where(live, asum + w, asum))
+        T.copy_(torch.where(live, test_T, T))
+        k.add_(1)
+
+    _repeat(step, kmax, dev)
     acc[:3] = acc[:3] + bg[:, None, None] * T
     if stats is not None:
         stats["pair_pixels"] = int(evaluated)
@@ -899,12 +926,11 @@ def composite_tiles_plain(rows: torch.Tensor, counts: torch.Tensor,
     kept = torch.zeros((), dtype=torch.int64, device=rows.device)
 
     def row_at(k):
-        nonlocal kept
-        r, valid = rows[:, k], (k < counts)[:, None]
+        r, valid = _list_row(rows, counts, k)
         if cull and hard_cutoffs:
             valid = valid & tile_cover_plain(r, grid.ox[:, 0],
                                              grid.oy[:, 0])[:, None]
-        kept = kept + valid.sum()
+        kept.add_(valid.sum())
         return r, valid
 
     acc, asum = _blend_plain(row_at, kmax, grid, pw - HDR, bg, hard_cutoffs,
@@ -914,12 +940,19 @@ def composite_tiles_plain(rows: torch.Tensor, counts: torch.Tensor,
     return torch.cat([acc, asum[None]], dim=0).permute(1, 0, 2).contiguous()
 
 
+def _list_row(rows: torch.Tensor, counts: torch.Tensor, k: torch.Tensor):
+    """Every tile's k-th list slot (k a 0-d int64 tensor) -> (r [T, PW],
+    valid [T, 1])."""
+    return rows.index_select(1, k.view(1))[:, 0], (k < counts)[:, None]
+
+
 def _backward_plain(row_at, kmax: int, grid: _TileGrid, g_out: torch.Tensor,
-                    total: torch.Tensor, hard_cutoffs: bool):
+                    total: torch.Tensor, hard_cutoffs: bool, emit) -> None:
     """The backward's front-to-back re-walk, one step per position k of
-    every tile's rows (`row_at` as in `_blend_plain`): yields (k, valid
-    [T], d [T, PW]), the gradient row of each tile's k-th row (zero where
-    the tile has no such row)."""
+    every tile's rows (`row_at` as in `_blend_plain`): at each step
+    `emit(k, valid [T], d [T, PW])` takes the gradient row of each tile's
+    k-th row (zero where the tile has no such row), k a 0-d int64 tensor,
+    and must write it in place."""
     c_feat = g_out.shape[1] - 1
     basis = torch.stack([torch.ones_like(grid.lx), grid.lx, grid.ly, grid.xx,
                          grid.yy, grid.xy])              # [6, px]
@@ -928,18 +961,20 @@ def _backward_plain(row_at, kmax: int, grid: _TileGrid, g_out: torch.Tensor,
     T = torch.ones_like(total)
     prefix = torch.zeros_like(total)
     done = torch.zeros_like(total, dtype=torch.bool)
-    for k in range(kmax):
+    k = torch.zeros((), dtype=torch.int64, device=total.device)
+
+    def step():
         r, valid = row_at(k)
         alpha_raw, alpha, skip = grid.alpha(r, hard_cutoffs)
         test_T = T * (1.0 - alpha)
         live = valid & ~done & ~skip
         if hard_cutoffs:
             stop = live & (test_T < T_EPS)
-            done = done | stop
+            done.logical_or_(stop)
             live = live & ~stop
         w = torch.where(live, alpha * T, 0.0)
         phi = (r[:, HDR:, None] * g_feat).sum(1) + g_alpha
-        prefix = prefix + w * phi
+        prefix.add_(w * phi)
         d_alpha = torch.where(
             live & (alpha_raw < MAX_ALPHA),
             T * phi - (total - prefix) / torch.clamp(1.0 - alpha, min=1e-6),
@@ -962,8 +997,11 @@ def _backward_plain(row_at, kmax: int, grid: _TileGrid, g_out: torch.Tensor,
         out[:, 5] = torch.where(ln_op > -1e29, d[:, 0] * torch.exp(-ln_op),
                                 0.0)
         out[:, HDR:] = (g_feat * w[:, None, :]).sum(-1)
-        T = torch.where(live, test_T, T)
-        yield k, valid[:, 0], out
+        T.copy_(torch.where(live, test_T, T))
+        emit(k, valid[:, 0], out)
+        k.add_(1)
+
+    _repeat(step, kmax, total.device)
 
 
 def composite_tiles_backward_plain(rows: torch.Tensor, counts: torch.Tensor,
@@ -974,16 +1012,12 @@ def composite_tiles_backward_plain(rows: torch.Tensor, counts: torch.Tensor,
     front-to-back re-walk, one list slot per step."""
     num_tiles, k_cap, _ = rows.shape
     kmax = min(int(counts.max()), k_cap) if num_tiles else 0
-
-    def row_at(k):
-        return rows[:, k], (k < counts)[:, None]
-
     d_rows = torch.zeros_like(rows)
-    for k, _, d in _backward_plain(
-            row_at, kmax,
-            _TileGrid.regular(num_tiles, tiles_x, tile_size, rows.device),
-            g_out, total, hard_cutoffs):
-        d_rows[:, k] = d
+    _backward_plain(
+        lambda k: _list_row(rows, counts, k), kmax,
+        _TileGrid.regular(num_tiles, tiles_x, tile_size, rows.device),
+        g_out, total, hard_cutoffs,
+        lambda k, valid, d: d_rows.index_copy_(1, k.view(1), d[:, None]))
     return d_rows
 
 
@@ -996,8 +1030,13 @@ def composite_stream_chunks_backward_plain(
     row_at, kmax, seg_start, _ = _segment_walk(rows, starts)
     grid = _TileGrid.regular(starts.numel() - 1, tiles_x, tile_size,
                              rows.device)
-    d_rows = torch.zeros_like(rows)
-    for k, valid, d in _backward_plain(row_at, kmax, grid, g_out, total,
-                                       hard_cutoffs):
-        d_rows[seg_start[valid] + k] = d[valid]
-    return d_rows
+    # a tile past the end of its segment writes to a spare last row
+    n = rows.shape[0]
+    d_rows = torch.zeros((n + 1,) + rows.shape[1:], dtype=rows.dtype,
+                         device=rows.device)
+
+    def emit(k, valid, d):
+        d_rows.index_copy_(0, torch.where(valid, seg_start + k, n), d)
+
+    _backward_plain(row_at, kmax, grid, g_out, total, hard_cutoffs, emit)
+    return d_rows[:n]

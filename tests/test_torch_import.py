@@ -169,19 +169,26 @@ def test_port_imports_no_cv2_pil_matplotlib_or_sklearn():
 
 
 def test_port_sources_name_no_jax_import():
-    """No port source (the smoke script included) has an import statement of
-    jax, flax or the JAX package."""
+    """No port source (the smoke script and the port's scripts/*_torch.py
+    included) has an import statement of jax, flax or the JAX package; the
+    scripts import neither PIL nor cv2, nor anything of tests/."""
+    import glob
     import re
     pat = re.compile(r"^\s*(from|import) (jax|flax|langsplat4d)(\.|\s|$)",
                      re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    host = re.compile(r"^\s*(from|import) (PIL|cv2|tests|scene_fixture)"
+                      r"(\.|\s|$)", re.M)
+    scripts = glob.glob(os.path.join(REPO, "scripts", "*_torch.py"))
+    files = [os.path.join(REPO, "chip_smoke.py")] + scripts
     for root, dirs, names in os.walk(os.path.join(REPO, "langsplat4d_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]    # build output
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 20
+    assert len(files) > 20 and scripts
     for f in files:
         with open(f) as fh:
-            assert not pat.search(fh.read()), f
+            text = fh.read()
+        assert not pat.search(text), f
+        assert f not in scripts or not host.search(text), f
 
 
 def _call_without_device(entry, tmp_path):
